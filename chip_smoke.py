@@ -1,0 +1,274 @@
+"""Smoke run of the PyTorch port on one CUDA card.
+
+    python3 chip_smoke.py
+
+1. Prints the card's name and power limit, builds the WaveNet sampler
+   kernel from ``nspeech_tpu_torch/csrc`` and prints its build time and
+   the ptxas register / shared-memory report.
+2. Holds the kernel against its plain PyTorch version (``WaveNet.generate``)
+   at full vocoder width (wavenet hparams + lc_channels=80, gc_channels=16,
+   gc_category_cardinality=4, seeded weights and mel): B=1 without
+   speakers and B=4 with per-stream speakers, each at temperature 0 and 1,
+   over N_CHECK samples. Codes drift apart after one rounding flip, so the
+   check is teacher-forced: the kernel's codes are fed to the plain
+   generator as its inputs, and at every step the kernel's code must score
+   within SCORE_TOL of the plain version's best score (same Philox noise).
+3. Serves 3 ``TextToSpeech.synthesize`` requests and one
+   ``synthesize_batch`` of 4 with speaker ids at full Tacotron-2 and
+   WaveNet width (seeded weights, decoder cut to MAX_ITERS steps), counts
+   the sampler's launches on that path and checks every waveform.
+4. Prints one ``{"kernels": [...]}`` line and, last, the
+   ``{"ok": true, "device": ...}`` line. Exits non-zero without a card or
+   when any check fails.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+N_CHECK = 2000          # samples per kernel-vs-plain case
+SCORE_TOL = 1e-3        # f32 logits summed in another order, same noise
+MAX_ITERS = 40          # decoder steps per request: 200 frames at r=5
+VOCODER_HPARAMS = "lc_channels=80,gc_channels=16,gc_category_cardinality=4"
+PEAK_F32_FLOPS = 67e12  # H100 SXM, float32 outside the tensor cores
+PEAK_BYTES = 3.35e12    # H100 SXM HBM3
+
+
+def card_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+
+
+def cuda_ms(fn, reps: int = 1) -> float:
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def vocoder(seed: int):
+    from nspeech_tpu_torch.config import load_config
+    from nspeech_tpu_torch.models.wavenet import WaveNet
+    from nspeech_tpu_torch.ops.layers import tree_to
+
+    cfg = load_config("wavenet").parse(VOCODER_HPARAMS)
+    net = WaveNet(cfg)
+    return cfg, net, tree_to(net.init(seed), "cuda")
+
+
+def seeded_lc(seed: int, batch: int, n: int, hop: int) -> torch.Tensor:
+    from nspeech_tpu_torch.ops.upsample import upsample_on_device
+
+    frames = n // hop + 1
+    mel = np.random.default_rng(seed).random((batch, frames, 80))
+    return upsample_on_device(torch.tensor(mel, dtype=torch.float32,
+                                           device="cuda"), hop, n)
+
+
+def sampler_bound(packed, batch: int, n: int, m: int, flops: float):
+    """(least time in ms, "bytes" or "operations"): each weight, lc value
+    and code moved once, against the float32 operations of the recurrence."""
+    weight_bytes = sum(v.numel() * v.element_size() for v in packed.values())
+    moved = weight_bytes + batch * n * m * 4 + batch * n * 4
+    t_bytes, t_ops = moved / PEAK_BYTES, flops / PEAK_F32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops else "operations")
+
+
+def sampler_flops(net, batch: int, n: int) -> float:
+    R, DC, S, Q, M = (net.residual_channels, net.dilation_channels,
+                      net.skip_channels, net.quantization_channels,
+                      net.lc_channels)
+    L = len(net.dilations)
+    macs = L * ((2 * R + M) * 2 * DC + DC * R + DC * S) + S * S + S * Q
+    return 2.0 * macs * batch * n
+
+
+def check_case(net, params, batch, gc_ids, temperature, seed):
+    """Kernel vs plain, teacher-forced. Returns a result dict."""
+    from nspeech_tpu_torch.ops.cuda.wavenet_gen import CudaWaveNetGenerator
+    from nspeech_tpu_torch.ops.philox import gumbel_noise
+
+    Q = net.quantization_channels
+    lc = seeded_lc(seed, batch, N_CHECK, 250)
+    gen = CudaWaveNetGenerator(net, params, gc_ids=gc_ids)
+    gen(N_CHECK, seed=seed, batch=batch, lc=lc, temperature=temperature)
+    torch.cuda.synchronize()
+    codes = None
+
+    def run():
+        nonlocal codes
+        codes = gen(N_CHECK, seed=seed, batch=batch, lc=lc,
+                    temperature=temperature)
+
+    ms = cuda_ms(run)
+    inputs = torch.cat([torch.full((batch, 1), Q // 2, device="cuda",
+                                   dtype=torch.int32), codes[:, :-1]], dim=1)
+    _, logits = net.generate(params, 0, seed=seed, batch=batch, gc_ids=gc_ids,
+                             lc=lc, seed_codes=inputs, temperature=temperature,
+                             return_logits=True, include_prime=True)
+    if temperature > 0:
+        g = gumbel_noise(seed, torch.arange(N_CHECK, device="cuda"), batch, Q)
+        scores = logits * (1.0 / temperature) + g.permute(1, 0, 2)
+    else:
+        scores = logits
+    best = scores.max(dim=-1).values
+    chosen = scores.gather(-1, codes.long()[..., None])[..., 0]
+    gap = (best - chosen).max().item()
+    differ = (scores.argmax(dim=-1) != codes.long()).nonzero()
+    first = None if differ.numel() == 0 else int(differ[:, 1].min())
+    ok = bool(np.isfinite(gap) and gap <= SCORE_TOL
+              and int(codes.min()) >= 0 and int(codes.max()) < Q)
+    print(f"kernel vs plain B={batch} gc={gc_ids} T={temperature}: "
+          f"max score gap {gap:.3g} (tol {SCORE_TOL}), first differing "
+          f"argmax at step {first}, kernel {ms:.3f} ms for {N_CHECK} samples "
+          f"-> {'ok' if ok else 'FAIL'}")
+    return {"ok": ok, "gap": gap, "ms": ms, "gen": gen, "lc": lc}
+
+
+def kernel_phase():
+    from nspeech_tpu_torch.ops.cuda import build
+
+    t0 = time.perf_counter()
+    _, report = build.build("wavenet_gen.cu")
+    print(f"built wavenet_gen.cu in {time.perf_counter() - t0:.1f} s")
+    for line in report.splitlines():
+        if "registers" in line or "Compiling entry" in line:
+            print("ptxas:", line.strip())
+    _, net, params = vocoder(0)
+    results = []
+    for batch, gc_ids in ((1, None), (4, [0, 1, 2, 3])):
+        for temperature in (0.0, 1.0):
+            results.append(check_case(net, params, batch, gc_ids,
+                                      temperature, seed=11 + batch))
+    # the main path's single-request shape: B=1, T=1 (results[1])
+    main = results[1]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    net.generate(params, N_CHECK, seed=12, batch=1, lc=main["lc"],
+                 temperature=1.0)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    bound_ms, bound_by = sampler_bound(main["gen"].packed, 1, N_CHECK,
+                                       net.lc_channels,
+                                       sampler_flops(net, 1, N_CHECK))
+    record = {
+        "name": "wavenet_sampler",
+        "route": "cuda",
+        "source": "nspeech_tpu_torch/csrc/wavenet_gen.cu",
+        "replaces": "nspeech_tpu/ops/pallas/wavenet_gen.py:537",
+        "max_abs_err": max(r["gap"] for r in results),
+        "ms": main["ms"],
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,
+        "checked": all(r["ok"] for r in results),
+        "shape": f"B=1, {N_CHECK} samples, full width",
+    }
+    print(f"sampler {record['ms']:.3f} ms, plain {plain_ms:.1f} ms, bound "
+          f"{record['bound_ms']:.4f} ms at B=1 x {N_CHECK} samples")
+    return record
+
+
+def e2e_phase():
+    from nspeech_tpu_torch.config import load_config
+    from nspeech_tpu_torch.models.tacotron2 import Tacotron2
+    from nspeech_tpu_torch.ops.cuda import wavenet_gen
+    from nspeech_tpu_torch.serving import (Synthesizer, TextToSpeech,
+                                           WaveNetVocoder)
+
+    cfg = load_config("taco2").parse(f"max_iters={MAX_ITERS}")
+    print(f"end to end: taco2 full width, max_iters={MAX_ITERS} "
+          f"({MAX_ITERS * cfg.outputs_per_step} frames), vocoder {VOCODER_HPARAMS}")
+    model = Tacotron2(cfg)
+    params, bn = model.init(1)
+    syn = Synthesizer(cfg).set_variables(params, bn, model=model)
+    vcfg, net, vparams = vocoder(2)
+    voc = WaveNetVocoder(vcfg).set_variables(net, vparams)
+    tts = TextToSpeech(syn, voc)
+    vocoded = []                     # (samples, seconds) per vocoder call
+    vocode_batch = voc.vocode_batch
+
+    def timed_vocode_batch(mels, *args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = vocode_batch(mels, *args, **kwargs)   # ends in a device->host copy
+        vocoded.append((out.size, time.perf_counter() - t0))
+        return out
+
+    voc.vocode_batch = timed_vocode_batch
+    texts = ["The quick brown fox jumps over the lazy dog.",
+             "Hello world, this is a test of the port.",
+             "Speech synthesis on one card.",
+             "Four streams share one batched sampler call."]
+    tts.synthesize(texts[0])                   # warm-up: cuDNN, cuFFT plans
+    torch.cuda.synchronize()
+    vocoded.clear()
+    wavenet_gen.SAMPLER.launches = 0
+    ok = True
+    for i, text in enumerate(texts[:3]):
+        t0 = time.perf_counter()
+        wav, mel, _ = tts.synthesize(text, temperature=1.0)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        good = wav.size > 0 and bool(np.isfinite(wav).all())
+        ok &= good
+        n, vs = vocoded[-1]
+        print(f"request {i}: {dt:.3f} s wall, mel {mel.shape}, {n} samples "
+              f"vocoded in {vs:.3f} s, wav {wav.size} samples, finite {good}")
+    t0 = time.perf_counter()
+    wavs, mels, _ = tts.synthesize_batch(texts, speaker_ids=[0, 1, 2, 3])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    good = all(w.size > 0 and np.isfinite(w).all() for w in wavs)
+    ok &= good
+    n, vs = vocoded[-1]
+    print(f"batch of 4: {dt:.3f} s wall, mels {mels.shape}, {n} samples "
+          f"vocoded in {vs:.3f} s, wav lengths {[w.size for w in wavs]}, "
+          f"finite {good}")
+    samples = sum(n for n, _ in vocoded)
+    seconds = sum(s for _, s in vocoded)
+    launches = wavenet_gen.SAMPLER.launches
+    print(f"vocoder {samples / seconds:.1f} samples/s over {len(vocoded)} calls; "
+          f"sampler launches {launches}")
+    if launches < 4:
+        print("FAIL: the main path did not launch the sampler kernel "
+              "once per vocoded call")
+        ok = False
+    return ok, launches
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("no CUDA device: this smoke runs on the card", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(card_line())
+    record = kernel_phase()
+    e2e_ok, launches = e2e_phase()
+    record["launches"] = launches
+    print(json.dumps({"kernels": [record]}))
+    if not (record["checked"] and e2e_ok):
+        print("FAIL", file=sys.stderr)
+        return 1
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

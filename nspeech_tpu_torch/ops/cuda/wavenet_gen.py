@@ -1,0 +1,201 @@
+"""WaveNet sampler: the CUDA kernel ``csrc/wavenet_gen.cu`` and its wrapper.
+
+Replaces the Pallas TPU kernel of ``nspeech_tpu/ops/pallas/wavenet_gen.py``
+(``PallasWaveNetGenerator``, one-shot forms at batch 1 and batch B with
+per-stream speakers). :class:`CudaWaveNetGenerator` has the surface of
+``PallasWaveNetGenerator.__call__``: on CUDA tensors it launches the
+kernel (or raises); on CPU tensors it runs the plain version,
+``WaveNet.generate``, which computes the same recurrence and draws the
+same Philox noise one PyTorch op at a time.
+
+The kernel's weight layout (:func:`pack_params`) is the port's own, not
+the TPU's 128-lane packing: the filter and gate halves and the lc
+projection of each layer are one [2R + M, 2DC] matrix over the input row
+``[ring state | current | lc_t]``; the per-stream bias (layer biases plus
+the speaker's gc projection) is computed here in PyTorch.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, Optional
+
+import torch
+
+from nspeech_tpu_torch.ops.cuda.build import build
+
+SOURCE = "wavenet_gen.cu"
+
+
+def pack_params(net, params, gc_ids=None) -> Dict[str, torch.Tensor]:
+    """WaveNet params -> the kernel's float32 contiguous layout, on the
+    params' device. ``bfg`` is [L, G, 2DC] with G = len(gc_ids) (1 without
+    speakers)."""
+    layers = params["layers"]
+    R, DC, S, Q = (net.residual_channels, net.dilation_channels,
+                   net.skip_channels, net.quantization_channels)
+    dev = params["causal"].device
+    gc = net._embed_gc(params, gc_ids)                   # [G, C] or None
+    G = 1 if gc is None else gc.shape[0]
+    wfg, bfg, wdense, bdense, wskip = [], [], [], [], []
+    bskip = torch.zeros(S, device=dev)
+    for lp in layers:
+        rows = [torch.cat([lp["filter"][0], lp["gate"][0]], dim=1),
+                torch.cat([lp["filter"][1], lp["gate"][1]], dim=1)]
+        if net.lc_channels:
+            rows.append(torch.cat([lp["lc_filter"][0], lp["lc_gate"][0]], dim=1))
+        wfg.append(torch.cat(rows, dim=0))               # [2R + M, 2DC]
+        b = torch.zeros(G, 2 * DC, device=dev)
+        if net.use_biases:
+            b = b + torch.cat([lp["filter_bias"], lp["gate_bias"]])
+        if gc is not None:
+            b = b + gc @ torch.cat([lp["gc_filter"][0], lp["gc_gate"][0]], dim=1)
+        bfg.append(b)
+        wdense.append(lp["dense"][0])
+        bdense.append(lp["dense_bias"] if net.use_biases
+                      else torch.zeros(R, device=dev))
+        wskip.append(lp["skip"][0])
+        if net.use_biases:
+            bskip = bskip + lp["skip_bias"]
+    zeros = torch.zeros
+    packed = {
+        "wc": params["causal"],                           # [2, Q, R]
+        "wfg": torch.stack(wfg),
+        "bfg": torch.stack(bfg),
+        "wdense": torch.stack(wdense),
+        "bdense": torch.stack(bdense),
+        "wskip": torch.cat(wskip, dim=0),                 # [L*DC, S]
+        "bskip": bskip,
+        "post1": params["post1"][0],
+        "b1": params.get("post1_bias", zeros(S, device=dev)),
+        "post2": params["post2"][0],
+        "b2": params.get("post2_bias", zeros(Q, device=dev)),
+    }
+    packed = {k: v.to(torch.float32).contiguous() for k, v in packed.items()}
+    packed["dilations"] = torch.tensor(net.dilations, dtype=torch.int32,
+                                       device=dev)
+    return packed
+
+
+class WaveNetSampler:
+    """Launches ``wavenet_sample`` and counts its launches."""
+
+    def __init__(self):
+        self.launches = 0
+        self._fn = None
+
+    def _lib_fn(self):
+        if self._fn is None:
+            lib, _ = build(SOURCE)
+            fn = lib.wavenet_sample
+            fn.argtypes = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 9
+                           + [ctypes.c_float, ctypes.c_ulonglong,
+                              ctypes.c_void_p])
+            fn.restype = ctypes.c_int
+            self._fn = fn
+        return self._fn
+
+    def __call__(self, packed: Dict[str, torch.Tensor],
+                 lc: Optional[torch.Tensor], n_samples: int, batch: int,
+                 temperature: float, seed: int) -> torch.Tensor:
+        """Codes [batch, n_samples] int32 from the kernel. ``lc`` is
+        [batch, >= n_samples, M] float32 (None when M == 0)."""
+        dev = packed["wc"].device
+        if dev.type != "cuda":
+            raise ValueError(f"the CUDA sampler needs CUDA tensors, got {dev}")
+        for name, v in packed.items():
+            want = torch.int32 if name == "dilations" else torch.float32
+            if v.device != dev or v.dtype != want or not v.is_contiguous():
+                raise ValueError(f"packed[{name!r}] must be a contiguous "
+                                 f"{want} tensor on {dev}")
+        two, Q, R = packed["wc"].shape
+        L, K, F = packed["wfg"].shape
+        DC = F // 2
+        S = packed["post1"].shape[0]
+        M = K - 2 * R
+        if two != 2 or any(c % 4 for c in (R, DC, S, Q)):
+            raise ValueError("the sampler needs filter_width 2 and R, DC, S, Q "
+                             "multiples of 4")
+        G = packed["bfg"].shape[1]
+        bfg = packed["bfg"]
+        if G == 1 and batch > 1:
+            bfg = bfg.expand(L, batch, F).contiguous()
+        elif G != batch:
+            raise ValueError(f"{G} speakers for a batch of {batch}")
+        lc_ptr = None
+        if M:
+            if lc is None or lc.shape[0] != batch or lc.shape[2] != M:
+                raise ValueError(f"lc must be [{batch}, T, {M}]")
+            if lc.device != dev or lc.dtype != torch.float32:
+                raise ValueError(f"lc must be float32 on {dev}")
+            if lc.shape[1] < n_samples:
+                lc = torch.nn.functional.pad(lc, (0, 0, 0, n_samples - lc.shape[1]))
+            lc = lc[:, :n_samples].contiguous()
+            lc_ptr = lc.data_ptr()
+        ring_rows = int(packed["dilations"].sum())
+        rings = torch.zeros(batch, ring_rows, R, device=dev)
+        codes = torch.empty(batch, n_samples, dtype=torch.int32, device=dev)
+        inv_t = 1.0 / temperature if temperature > 0.0 else 0.0
+        fn = self._lib_fn()
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            rc = fn(*(packed[k].data_ptr() for k in (
+                "wc", "wfg")), bfg.data_ptr(), *(packed[k].data_ptr() for k in (
+                    "wdense", "bdense", "wskip", "bskip", "post1", "b1",
+                    "post2", "b2", "dilations")),
+                lc_ptr, rings.data_ptr(), codes.data_ptr(),
+                batch, n_samples, L, R, DC, S, Q, M, ring_rows,
+                inv_t, seed & 0xFFFFFFFFFFFFFFFF, stream)
+        if rc != 0:
+            raise RuntimeError(f"wavenet_sample launch failed: CUDA error {rc}")
+        self.launches += 1
+        return codes
+
+
+SAMPLER = WaveNetSampler()
+
+
+class CudaWaveNetGenerator:
+    """Reusable generator: params are packed once per speaker set.
+
+    Same call surface as the TPU package's ``PallasWaveNetGenerator``.
+    Refuses what that refuses (scalar input, filter_width != 2) and, for
+    now, priming (``seed_codes``)."""
+
+    def __init__(self, net, params, gc_ids=None):
+        if net.scalar_input or net.filter_width != 2:
+            raise NotImplementedError(
+                "WaveNet sampler: one-hot filter_width=2 only")
+        self.net = net
+        self.params = params
+        self.gc_ids = gc_ids
+        self.device = params["causal"].device
+        self.packed = (pack_params(net, params, gc_ids)
+                       if self.device.type == "cuda" else None)
+
+    def __call__(self, n_samples: int, seed: int = 0, batch: int = 1,
+                 seed_codes=None, lc: Optional[torch.Tensor] = None,
+                 temperature: float = 1.0,
+                 deterministic: bool = False) -> torch.Tensor:
+        """Mu-law codes [batch, n_samples] int32; ``lc`` is per-sample
+        conditioning [batch, >= n_samples, M]. Temperature <= 0 (or
+        ``deterministic``) is argmax."""
+        use_lc = lc is not None
+        if use_lc and not self.net.lc_channels:
+            raise ValueError("model has lc_channels=0; cannot condition")
+        if self.net.lc_channels and not use_lc:
+            raise ValueError("locally-conditioned model needs lc=")
+        if use_lc and lc.shape[0] != batch:
+            raise ValueError(f"lc batch {lc.shape[0]} != generation batch {batch}")
+        if seed_codes is not None:
+            raise NotImplementedError("priming is not ported to the sampler yet")
+        if deterministic:
+            temperature = 0.0
+        dev = lc.device if use_lc else self.device
+        if dev != self.device:
+            raise ValueError(f"lc on {dev}, weights on {self.device}")
+        if dev.type == "cpu":
+            return self.net.generate(self.params, n_samples, seed=seed,
+                                     batch=batch, gc_ids=self.gc_ids, lc=lc,
+                                     temperature=temperature)
+        return SAMPLER(self.packed, lc, n_samples, batch, temperature, seed)

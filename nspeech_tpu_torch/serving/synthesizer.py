@@ -1,0 +1,102 @@
+"""Inference wrapper: text -> (waveform, mel, linear) with Tacotron-2 and
+Griffin-Lim. Port of ``nspeech_tpu/serving/synthesizer.py``.
+
+Texts are padded to a bucket of ``text_bucket`` symbols and the batch to a
+power of two, with padding rows of length 0 (finished from the first
+decoder step). Each row gets its own Griffin-Lim inversion; the endpoint
+trim runs on the host.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from nspeech_tpu_torch.config import Config
+from nspeech_tpu_torch import dsp
+from nspeech_tpu_torch.data.feeder import round_up
+from nspeech_tpu_torch.models.tacotron2 import Tacotron2
+from nspeech_tpu_torch.ops.layers import tree_to
+from nspeech_tpu_torch.text import text_to_sequence
+from nspeech_tpu_torch.text.symbols import PAD_ID
+
+
+class Synthesizer:
+    def __init__(self, cfg: Config, text_bucket: int = 32, device="cuda"):
+        self.cfg = cfg
+        self.device = torch.device(device)
+        self.model = None
+        self._params = None
+        self._bn_state = None
+        self._cleaners = [x.strip() for x in cfg.cleaners.split(",")]
+        self._text_bucket = text_bucket
+        if self.device.type == "cuda":
+            # full float32: cuDNN convolutions default to TF32
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+
+    def set_variables(self, params, bn_state, model=None) -> "Synthesizer":
+        """Use the port's (or bridged, see ``convert``) parameters; they
+        are moved to this synthesizer's device."""
+        if model is not None:
+            self.model = model
+        if self.model is None:
+            self.model = Tacotron2(self.cfg)
+        self._params = tree_to(params, self.device)
+        self._bn_state = tree_to(bn_state, self.device)
+        return self
+
+    def initial_phase(self, shape) -> torch.Tensor:
+        """Griffin-Lim's initial phase for a batch: uniform [0, 1) from a
+        generator seeded 0 on every call, so a request is reproducible."""
+        gen = torch.Generator(device=self.device).manual_seed(0)
+        return torch.rand(shape, generator=gen, device=self.device)
+
+    def synthesize(self, text: str, speaker_id: int = -1,
+                   want_features=True) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """(waveform float32, mel [T, M], linear [T, F]); ``want_features``
+        as in :meth:`synthesize_batch`."""
+        wavs, mels, lins = self.synthesize_batch(
+            [text], [speaker_id], want_features=want_features)
+        return (wavs[0], mels[0] if mels is not None else None,
+                lins[0] if lins is not None else None)
+
+    @torch.no_grad()
+    def synthesize_batch(self, texts, speaker_ids=None, want_features=True):
+        """One padded forward and per-row Griffin-Lim for N texts. Returns
+        (list of waveforms, mels [N, T, M], linears [N, T, F]); the feature
+        arrays are None with ``want_features=False``, the linear alone with
+        ``want_features="mel"``."""
+        if self._params is None:
+            raise RuntimeError("Synthesizer.set_variables() first")
+        if speaker_ids is None:
+            speaker_ids = [-1] * len(texts)
+        seqs = [text_to_sequence(t, self._cleaners) for t in texts]
+        padded_len = round_up(max(len(s) for s in seqs), self._text_bucket)
+        n = max(1, 1 << (len(seqs) - 1).bit_length())
+        ids = np.full((n, padded_len), PAD_ID, np.int64)
+        for i, s in enumerate(seqs):
+            ids[i, : len(s)] = s
+        lengths = np.zeros((n,), np.int64)
+        lengths[: len(seqs)] = [len(s) for s in seqs]
+        spk = np.zeros((n,), np.int64)
+        spk[: len(seqs)] = [max(s, 0) for s in speaker_ids]
+        dev = self.device
+        outputs = self.model.forward(
+            self._params, self._bn_state, torch.from_numpy(ids).to(dev),
+            torch.from_numpy(lengths).to(dev), torch.from_numpy(spk).to(dev))
+        lin = outputs["linear_outputs"]
+        wavs = dsp.inv_preemphasis(
+            dsp.inv_spectrogram(lin, self.cfg, phase=self.initial_phase(lin.shape)),
+            float(self.cfg.preemphasis)).cpu().numpy()
+        self.last_alignment = outputs["alignments"][0].cpu().numpy()
+        self.last_decoder_steps = int(outputs["decoder_steps"][0])
+        out_wavs = [w[: dsp.find_endpoint(w, self.cfg)] for w in wavs[: len(texts)]]
+        if not want_features:
+            return out_wavs, None, None
+        mels = outputs["mel_outputs"][: len(texts)].cpu().numpy()
+        if want_features == "mel":
+            return out_wavs, mels, None
+        return out_wavs, mels, lin[: len(texts)].cpu().numpy()
