@@ -13,11 +13,26 @@
    check is teacher-forced: the kernel's codes are fed to the plain
    generator as its inputs, and at every step the kernel's code must score
    within SCORE_TOL of the plain version's best score (same Philox noise).
-3. Serves 3 ``TextToSpeech.synthesize`` requests and one
+3. Holds the kernel's carried-state launches (the streaming form) against
+   one launch and against the plain version: launches of N_CHECK samples
+   split as CARRY_SPLIT must give the codes of one launch, in the same 4
+   cases; a launch resumed at sample RESUME_T0 from a carry the kernel
+   made must score within SCORE_TOL of the plain ``WaveNet.sample`` from
+   the same carry, teacher-forced, and leave the same carry (t0, code and
+   prev exactly, rings within RING_TOL relative).
+4. Serves 3 ``TextToSpeech.synthesize`` requests and one
    ``synthesize_batch`` of 4 with speaker ids at full Tacotron-2 and
    WaveNet width (seeded weights, decoder cut to MAX_ITERS steps), counts
    the sampler's launches on that path and checks every waveform.
-4. Prints one ``{"kernels": [...]}`` line and, last, the
+5. Streams at the same widths through ``StreamingTTS`` (chunk_frames=40,
+   growth=4, T=1): one ``stream`` and one ``stream_batch`` of 2 with
+   speakers. Prints time to first audio, wall time, chunk sizes, the time
+   from each launch to its chunk's delivery and audio seconds per wall
+   second; counts the carried launches on that path; checks that each
+   stream equals ``WaveNetVocoder.vocode_batch`` of the stream's own mel
+   at the same seed and that the mel is within MEL_TOL of
+   ``Tacotron2.forward``'s.
+6. Prints one ``{"kernels": [...]}`` line and, last, the
    ``{"ok": true, "device": ...}`` line. Exits non-zero without a card or
    when any check fails.
 """
@@ -34,7 +49,12 @@ import torch
 
 N_CHECK = 2000          # samples per kernel-vs-plain case
 SCORE_TOL = 1e-3        # f32 logits summed in another order, same noise
+CARRY_SPLIT = (700, 1, 1299)   # carried launches that make N_CHECK samples
+RESUME_T0 = 30000       # where the resumed carried launch starts
+N_RESUME = 300          # samples of the resumed launch
+RING_TOL = 1e-3         # rings after the resume, relative to their largest
 MAX_ITERS = 40          # decoder steps per request: 200 frames at r=5
+MEL_TOL = 1e-3          # windowed vs full-buffer postnet (float32 convs)
 VOCODER_HPARAMS = "lc_channels=80,gc_channels=16,gc_category_cardinality=4"
 PEAK_F32_FLOPS = 67e12  # H100 SXM, float32 outside the tensor cores
 PEAK_BYTES = 3.35e12    # H100 SXM HBM3
@@ -77,11 +97,17 @@ def seeded_lc(seed: int, batch: int, n: int, hop: int) -> torch.Tensor:
                                            device="cuda"), hop, n)
 
 
-def sampler_bound(packed, batch: int, n: int, m: int, flops: float):
+def sampler_bound(packed, batch: int, n: int, m: int, flops: float,
+                  carried: bool = False):
     """(least time in ms, "bytes" or "operations"): each weight, lc value
-    and code moved once, against the float32 operations of the recurrence."""
+    and code moved once (and, for a carried launch, the carry read and
+    written once), against the float32 operations of the recurrence."""
     weight_bytes = sum(v.numel() * v.element_size() for v in packed.values())
     moved = weight_bytes + batch * n * m * 4 + batch * n * 4
+    if carried:
+        ring_rows = int(packed["dilations"].sum())
+        R = packed["wc"].shape[2]
+        moved += 2 * batch * (ring_rows * R * 4 + 2 * 4)
     t_bytes, t_ops = moved / PEAK_BYTES, flops / PEAK_F32_FLOPS
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops else "operations")
 
@@ -182,6 +208,113 @@ def kernel_phase():
     return record
 
 
+def carried_case(net, params, batch, gc_ids, temperature, seed):
+    """Carried launches of CARRY_SPLIT vs one launch: identical codes."""
+    from nspeech_tpu_torch.ops.cuda.wavenet_gen import CudaWaveNetGenerator
+
+    lc = seeded_lc(seed, batch, N_CHECK, 250)
+    gen = CudaWaveNetGenerator(net, params, gc_ids=gc_ids)
+    one = gen(N_CHECK, seed=seed, batch=batch, lc=lc, temperature=temperature)
+    carry, parts, s = gen.chunk_carry0(batch), [], 0
+    for n in CARRY_SPLIT:
+        codes, carry = gen.generate_chunk(carry, n, seed=seed,
+                                          lc=lc[:, s:s + n],
+                                          temperature=temperature)
+        parts.append(codes)
+        s += n
+    same = (torch.equal(torch.cat(parts, dim=1), one) and carry[0] == N_CHECK
+            and torch.equal(carry[1], one[:, -1])
+            and torch.equal(carry[2], one[:, -2]))
+    print(f"carried launches {CARRY_SPLIT} vs one launch of {N_CHECK}, "
+          f"B={batch} gc={gc_ids} T={temperature}: identical {same}")
+    return same
+
+
+def resume_case(net, params, batch, gc_ids, temperature, seed):
+    """A carry the kernel made at RESUME_T0, resumed by the kernel and by
+    the plain version, teacher-forced; returns (ok, gap, gen, carry, lc)."""
+    from nspeech_tpu_torch.ops.cuda.wavenet_gen import CudaWaveNetGenerator
+    from nspeech_tpu_torch.ops.philox import gumbel_noise
+
+    Q = net.quantization_channels
+    lc = seeded_lc(seed, batch, RESUME_T0 + N_RESUME, 250)
+    gen = CudaWaveNetGenerator(net, params, gc_ids=gc_ids)
+    _, carry = gen.generate_chunk(gen.chunk_carry0(batch), RESUME_T0, seed=seed,
+                                  lc=lc[:, :RESUME_T0], temperature=temperature)
+    lc_r = lc[:, RESUME_T0:]
+    codes, k_carry = gen.generate_chunk(carry, N_RESUME, seed=seed, lc=lc_r,
+                                        temperature=temperature)
+    inputs = torch.cat([carry[1][:, None].long(), codes[:, :-1].long()], dim=1)
+    logits = []
+    _, p_carry = net.sample(params, carry, N_RESUME, seed,
+                            net._embed_gc(params, gc_ids), lc_r, temperature,
+                            forced=inputs, logits_all=logits)
+    scores = torch.stack(logits, dim=1)
+    if temperature > 0:
+        t = torch.arange(RESUME_T0, RESUME_T0 + N_RESUME, device=codes.device)
+        scores = (scores * (1.0 / temperature)
+                  + gumbel_noise(seed, t, batch, Q).permute(1, 0, 2))
+    chosen = scores.gather(-1, codes.long()[..., None])[..., 0]
+    gap = (scores.max(dim=-1).values - chosen).max().item()
+    differ = (scores.argmax(dim=-1) != codes.long()).nonzero()
+    first = None if differ.numel() == 0 else int(differ[:, 1].min())
+    ring_err = ((k_carry[3] - p_carry[3]).abs().max()
+                / p_carry[3].abs().max()).item()
+    same = (k_carry[0] == p_carry[0] == RESUME_T0 + N_RESUME
+            and torch.equal(k_carry[1], p_carry[1])
+            and torch.equal(k_carry[2], p_carry[2]))
+    ok = bool(np.isfinite(gap) and gap <= SCORE_TOL and ring_err <= RING_TOL
+              and same)
+    print(f"carried launch of {N_RESUME} resumed at t0={RESUME_T0} vs plain "
+          f"from the kernel's carry, B={batch} gc={gc_ids} T={temperature}: "
+          f"max score gap {gap:.3g} (tol {SCORE_TOL}), first differing argmax "
+          f"at step {first}, rings after: relative max |diff| {ring_err:.3g} "
+          f"(tol {RING_TOL}), t0/code/prev equal {same} -> "
+          f"{'ok' if ok else 'FAIL'}")
+    return ok, gap, gen, carry, lc_r
+
+
+def carried_phase():
+    _, net, params = vocoder(0)
+    same = [carried_case(net, params, batch, gc_ids, temperature, 21 + batch)
+            for batch, gc_ids in ((1, None), (4, [0, 1, 2, 3]))
+            for temperature in (0.0, 1.0)]
+    ok4, gap4, _, _, _ = resume_case(net, params, 4, [0, 1, 2, 3], 1.0, 31)
+    ok1, gap1, gen, carry, lc = resume_case(net, params, 1, None, 1.0, 32)
+    # timed at the streaming path's single-stream shape (B=1, T=1), far
+    # into a stream
+    n_timed = N_RESUME
+    gen.generate_chunk(carry, n_timed, seed=32, lc=lc, temperature=1.0)
+    ms = cuda_ms(lambda: gen.generate_chunk(carry, n_timed, seed=32, lc=lc,
+                                            temperature=1.0))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    net.generate_chunk(params, carry, n_timed, seed=32, lc=lc, temperature=1.0)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    bound_ms, bound_by = sampler_bound(gen.packed, 1, n_timed, net.lc_channels,
+                                       sampler_flops(net, 1, n_timed),
+                                       carried=True)
+    record = {
+        "name": "wavenet_sampler_carried",
+        "route": "cuda",
+        "source": "nspeech_tpu_torch/csrc/wavenet_gen.cu",
+        "replaces": "nspeech_tpu/ops/pallas/wavenet_gen.py:537",
+        "max_abs_err": max(gap4, gap1),
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,
+        "checked": all(same) and ok4 and ok1,
+        "shape": f"B=1, one launch of {n_timed} samples resumed at "
+                 f"t0={RESUME_T0}, full width",
+    }
+    print(f"carried sampler {ms:.3f} ms, plain {plain_ms:.1f} ms, bound "
+          f"{bound_ms:.4f} ms at B=1 x {n_timed} samples from t0={RESUME_T0}")
+    return record
+
+
 def e2e_phase():
     from nspeech_tpu_torch.config import load_config
     from nspeech_tpu_torch.models.tacotron2 import Tacotron2
@@ -217,6 +350,7 @@ def e2e_phase():
     torch.cuda.synchronize()
     vocoded.clear()
     wavenet_gen.SAMPLER.launches = 0
+    wavenet_gen.CARRIED_SAMPLER.launches = 0
     ok = True
     for i, text in enumerate(texts[:3]):
         t0 = time.perf_counter()
@@ -250,6 +384,93 @@ def e2e_phase():
     return ok, launches
 
 
+def streaming_phase():
+    """Returns (ok, carried launches on the streaming path)."""
+    from nspeech_tpu_torch.config import load_config
+    from nspeech_tpu_torch.models.tacotron2 import Tacotron2
+    from nspeech_tpu_torch.ops.cuda import wavenet_gen
+    from nspeech_tpu_torch.serving import (StreamingTTS, Synthesizer,
+                                           WaveNetVocoder)
+
+    cfg = load_config("taco2").parse(f"max_iters={MAX_ITERS}")
+    print(f"streaming: taco2 full width, max_iters={MAX_ITERS}, vocoder "
+          f"{VOCODER_HPARAMS}, chunk_frames=40, growth=4, T=1")
+    model = Tacotron2(cfg)
+    params, bn = model.init(1)
+    syn = Synthesizer(cfg).set_variables(params, bn, model=model)
+    vcfg, net, vparams = vocoder(2)
+    voc = WaveNetVocoder(vcfg).set_variables(net, vparams)
+    tts = StreamingTTS(syn, voc, chunk_frames=40, temperature=1.0, growth=4)
+    cases = [("stream of 1", ["The quick brown fox jumps over the lazy dog."],
+              None),
+             ("stream_batch of 2", ["Hello world, this is a test of the port.",
+                                    "Speech synthesis on one card."], [0, 1])]
+    wavenet_gen.SAMPLER.launches = 0
+    wavenet_gen.CARRIED_SAMPLER.launches = 0
+    runs = []
+    for name, texts, speakers in cases:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        first, sizes, parts = None, [], [[] for _ in texts]
+        for chunks in tts.stream_batch(texts, speakers):
+            if first is None:
+                first = time.perf_counter() - t0
+            sizes.append([0 if c is None else len(c) for c in chunks])
+            for i, c in enumerate(chunks):
+                if c is not None:
+                    parts[i].append(c)
+        wall = time.perf_counter() - t0
+        runs.append((name, texts, speakers, first, wall, sizes,
+                     [np.concatenate(p) for p in parts],
+                     list(tts.last_launch_to_delivery), tts.last_mel_batch,
+                     [m.shape[0] for m in tts.last_mels]))
+    launches = wavenet_gen.CARRIED_SAMPLER.launches
+    one_shot = wavenet_gen.SAMPLER.launches
+    ok = launches > 0 and one_shot == 0
+    for (name, texts, speakers, first, wall, sizes, wavs, l2d, mel_batch,
+         totals) in runs:
+        audio = sum(w.size for w in wavs) / cfg.sample_rate
+        ref = voc.vocode_batch(mel_batch, speakers, temperature=1.0)
+        equal = all(np.array_equal(w, ref[i, : w.size]) and
+                    w.size == totals[i] * tts._hop for i, w in enumerate(wavs))
+        finite = all(np.isfinite(w).all() and w.size > 0 for w in wavs)
+        mels = one_shot_mels(syn, texts, speakers)
+        gap = float(np.abs(mel_batch - mels[:, : mel_batch.shape[1]]).max())
+        good = equal and finite and gap <= MEL_TOL
+        ok &= good
+        print(f"{name}: time to first audio {first:.3f} s, wall {wall:.3f} s, "
+              f"{len(sizes)} chunks {[list(c) for c in zip(*sizes)]}, "
+              f"{audio:.3f} s of audio, {audio / wall:.4f} audio s per wall s, "
+              f"launch to delivery {[round(x, 3) for x in l2d]} s, finite "
+              f"{finite}, equals vocode_batch {equal}, mel vs Tacotron2.forward "
+              f"max |diff| {gap:.3g} (tol {MEL_TOL}) -> {'ok' if good else 'FAIL'}")
+    print(f"carried sampler launches on the streaming path {launches} "
+          f"(one-shot launches {one_shot})")
+    if launches == 0:
+        print("FAIL: streaming did not launch the carried kernel")
+    return ok, launches
+
+
+def one_shot_mels(syn, texts, speakers):
+    """``Tacotron2.forward``'s mel for the stream's padded batch."""
+    from nspeech_tpu_torch.text import text_to_sequence
+
+    n = max(1, 1 << (len(texts) - 1).bit_length())
+    seqs = [text_to_sequence(t, syn._cleaners) for t in texts]
+    width = -(-max(len(q) for q in seqs) // 32) * 32
+    ids = torch.zeros(n, width, dtype=torch.int64)
+    lengths = torch.zeros(n, dtype=torch.int64)
+    for i, q in enumerate(seqs):
+        ids[i, : len(q)] = torch.tensor(q)
+        lengths[i] = len(q)
+    spk = torch.zeros(n, dtype=torch.int64)
+    if speakers is not None:
+        spk[: len(texts)] = torch.tensor(speakers)
+    out = syn.model.forward(syn._params, syn._bn_state, ids.to(syn.device),
+                            lengths.to(syn.device), spk.to(syn.device))
+    return out["mel_outputs"][: len(texts)].cpu().numpy()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("no CUDA device: this smoke runs on the card", file=sys.stderr)
@@ -257,11 +478,14 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(card_line())
+    start = time.perf_counter()
     record = kernel_phase()
-    e2e_ok, launches = e2e_phase()
-    record["launches"] = launches
-    print(json.dumps({"kernels": [record]}))
-    if not (record["checked"] and e2e_ok):
+    carried = carried_phase()
+    e2e_ok, record["launches"] = e2e_phase()
+    stream_ok, carried["launches"] = streaming_phase()
+    print(f"smoke took {time.perf_counter() - start:.1f} s after the card line")
+    print(json.dumps({"kernels": [record, carried]}))
+    if not (record["checked"] and carried["checked"] and e2e_ok and stream_ok):
         print("FAIL", file=sys.stderr)
         return 1
     print(json.dumps({"ok": True, "device": {

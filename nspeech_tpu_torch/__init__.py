@@ -8,8 +8,8 @@ anything of ``nspeech_tpu``: what it needs from there it keeps as its own
 copy.
 
 Entry objects (``serving.Synthesizer``, ``serving.WaveNetVocoder``,
-``serving.TextToSpeech``) run on ``cuda`` unless the caller passes
-``device="cpu"``.
+``serving.TextToSpeech``, and ``serving.StreamingTTS`` built on the first
+two) run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
 
 __version__ = "0.1.0"

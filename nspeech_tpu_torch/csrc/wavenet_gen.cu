@@ -2,15 +2,24 @@
 //
 // Replaces the Pallas TPU kernel nspeech_tpu/ops/pallas/wavenet_gen.py
 // (PallasWaveNetGenerator._get_fn -> pl.pallas_call, body _make_kernel /
-// kernel) in its one-shot forms: batch 1 and batch B>1 with per-stream
-// global conditioning, local conditioning (mel) on every sample, Gumbel-max
-// sampling or argmax. Priming and the carried-state streaming form are not
-// here.
+// kernel) in its one-shot forms (K1: batch 1; K2: batch B>1 with
+// per-stream global conditioning) and its carried-state streaming form
+// (K4, carry_io=True): local conditioning (mel) on every sample,
+// Gumbel-max sampling or argmax. Priming (K3) is not here.
+//
+// One body serves every form. The state a stream carries from one launch
+// to the next is its dilation rings, its next input code and the input
+// before it ("prev", -1 when the causal conv's past tap is zero), and the
+// absolute index t0 of the launch's first sample. A one-shot launch is a
+// carried launch from the fresh state (zeroed rings, code Q/2, prev -1,
+// t0 = 0). Ring slots and the noise counter use the absolute index
+// t0 + t, so launches of any sizes chained over one carry give the codes
+// of one launch.
 //
 // Per sample and per stream: causal one-hot tap -> L gated dilated layers
-// (ring read at t mod d, fg = [state | current | lc_t] @ W_fg + bias,
-// tanh(f)*sigmoid(g), residual update, gated output kept for the skip
-// sum) -> skip = gated_all @ W_skip -> ReLU, 1x1, ReLU, 1x1 -> logits ->
+// (ring read at slot (t0 + t) mod d, fg = [state | current | lc_t] @ W_fg
+// + bias, tanh(f)*sigmoid(g), residual update, gated output kept for the
+// skip sum) -> skip = gated_all @ W_skip -> ReLU, 1x1, ReLU, 1x1 -> logits ->
 // argmax(logits / T + Gumbel) with the lowest-index tie-break; the code is
 // the next step's input.
 //
@@ -36,7 +45,8 @@
 // streams, lc projected at frame rate.
 //
 // Noise: Philox4x32-10 keyed by the 64-bit seed; code q of stream b at
-// sample t takes word q % 4 of philox(counter = (q / 4, t, b, 0)).
+// absolute sample t takes word q % 4 of philox(counter = (q / 4, t, b, 0))
+// (t taken mod 2^32).
 // u = (bits >> 8) * 2^-24 + 1e-10, g = -log(-log(u)). The plain PyTorch
 // version (nspeech_tpu_torch/ops/philox.py) computes the same bits.
 
@@ -61,9 +71,11 @@ struct Args {
   const float* b2;       // [Q]
   const int* dilations;  // [L]
   const float* lc;       // [B, T, M] or null when M == 0
-  float* rings;          // [B, ring_rows, R], zeroed
+  float* rings;          // [B, ring_rows, R] carried: read and written in place
+  int* state;            // [B, 2] carried (code, prev): read and written
   int* codes;            // [B, T]
   int B, T, L, R, DC, S, Q, M, ring_rows, part_size;
+  unsigned long long t0;  // absolute index of this launch's first sample
   float inv_temperature;  // <= 0: argmax
   uint32_t seed_lo, seed_hi;
 };
@@ -143,6 +155,7 @@ __global__ void __launch_bounds__(kThreads)
   float* part = part2 + DC * R;          // matvec partial sums
   int* dil = reinterpret_cast<int*>(part + a.part_size);   // [L]
   int* off = dil + L;                    // [L] ring row offsets
+  int* slot = off + L;                   // [L] this step's ring slot
   __shared__ float red_v[kThreads / 32];
   __shared__ int red_i[kThreads / 32];
   __shared__ int code_sh;
@@ -161,6 +174,7 @@ __global__ void __launch_bounds__(kThreads)
       dil[l] = a.dilations[l];
       off[l] = o;
       o += dil[l];
+      slot[l] = (int)(a.t0 % (unsigned long long)dil[l]);
     }
   }
   for (int i = tid; i < L * F; i += blockDim.x)
@@ -168,13 +182,14 @@ __global__ void __launch_bounds__(kThreads)
   for (int i = tid; i < L * R; i += blockDim.x) bd[i] = a.bdense[i];
   __syncthreads();
 
-  int code = Q / 2, prev = -1;
+  int code = a.state[2 * b], prev = a.state[2 * b + 1];
   for (int t = 0; t < a.T; ++t) {
+    const uint32_t abs_t = (uint32_t)(a.t0 + (unsigned long long)t);
     // every layer's ring state for this step, the lc row and the causal tap
     // are known up front: one round of independent loads, off the chain
     for (int i = tid; i < L * R; i += blockDim.x) {
       const int l = i / R;
-      st[i] = ring[(off[l] + t % dil[l]) * R + i % R];
+      st[i] = ring[(off[l] + slot[l]) * R + i % R];
     }
     for (int i = tid; i < M; i += blockDim.x) x[2 * R + i] = lc[(size_t)t * M + i];
     for (int i = tid; i < R; i += blockDim.x) {
@@ -207,7 +222,7 @@ __global__ void __launch_bounds__(kThreads)
         float tr = 0.f;
         for (int k = 0; k < DC; ++k) tr += part2[k * R + r];
         const float cur = x[R + r];
-        ring[(off[l] + t % dil[l]) * R + r] = cur;
+        ring[(off[l] + slot[l]) * R + r] = cur;
         x[R + r] = cur + (tr + bd[l * R + r]);
         if (l + 1 < L) x[r] = st[(l + 1) * R + r];
       }
@@ -234,7 +249,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int q = tid; q < Q; q += blockDim.x) {
       float s = partial_sum(part, ks, Q, q) + a.b2[q];
       if (a.inv_temperature > 0.f) {
-        const uint32_t bits = philox_word(q >> 2, t, b, 0u, a.seed_lo,
+        const uint32_t bits = philox_word(q >> 2, abs_t, b, 0u, a.seed_lo,
                                           a.seed_hi, q & 3);
         const float u = (float)(bits >> 8) * (1.0f / 16777216.0f) + 1e-10f;
         s = s * a.inv_temperature + (-logf(-logf(u)));
@@ -269,34 +284,49 @@ __global__ void __launch_bounds__(kThreads)
       code_sh = bi;
       a.codes[(size_t)b * a.T + t] = bi;
     }
+    // the ring slots were last read in the layer loop: advance them in
+    // warps other than the one finishing the argmax, one thread per layer
+    // (L <= kThreads - 32; on an H100 the same update in warp 0 before the
+    // barrier above cost 3% of a step, a strided loop here 3% too)
+    if (tid >= 32 && tid < 32 + L) {
+      const int l = tid - 32;
+      slot[l] = slot[l] + 1 == dil[l] ? 0 : slot[l] + 1;
+    }
     __syncthreads();
     code = code_sh;
+  }
+  if (tid == 0) {
+    a.state[2 * b] = code;
+    a.state[2 * b + 1] = prev;
   }
 }
 
 }  // namespace
 
-// Launches the sampler on `stream`; returns cudaGetLastError() (0 = ok).
+// Launches the sampler on `stream`, T samples from the carried state
+// (rings, state, t0); returns cudaGetLastError() (0 = ok).
 extern "C" int wavenet_sample(
     const float* wc, const float* wfg, const float* bfg, const float* wdense,
     const float* bdense, const float* wskip, const float* bskip,
     const float* post1, const float* b1, const float* post2, const float* b2,
-    const int* dilations, const float* lc, float* rings, int* codes, int B,
-    int T, int L, int R, int DC, int S, int Q, int M, int ring_rows,
-    float inv_temperature, unsigned long long seed, void* stream) {
+    const int* dilations, const float* lc, float* rings, int* state,
+    int* codes, int B, int T, int L, int R, int DC, int S, int Q, int M,
+    int ring_rows, unsigned long long t0, float inv_temperature,
+    unsigned long long seed, void* stream) {
+  if (L > kThreads - 32) return (int)cudaErrorInvalidValue;
   const int K4 = (2 * R + M + 3) & ~3;
   int part = 4 * kThreads;
   if (S > part) part = S;
   if (Q > part) part = Q;
   Args a{wc,    wfg,   bfg,   wdense, bdense, wskip, bskip, post1,
-         b1,    post2, b2,    dilations, lc, rings, codes,
+         b1,    post2, b2,    dilations, lc, rings, state, codes,
          B,     T,     L,     R,      DC,     S,     Q,     M,
-         ring_rows, part, inv_temperature, (uint32_t)(seed & 0xffffffffull),
-         (uint32_t)(seed >> 32)};
+         ring_rows, part, t0, inv_temperature,
+         (uint32_t)(seed & 0xffffffffull), (uint32_t)(seed >> 32)};
   const size_t smem =
       sizeof(float) * (size_t)(K4 + L * DC + S + L * R + 2 * L * DC + L * R +
                                DC * R + part) +
-      sizeof(int) * (size_t)(2 * L);
+      sizeof(int) * (size_t)(3 * L);
   cudaError_t err = cudaFuncSetAttribute(
       wavenet_sample_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);

@@ -19,8 +19,14 @@ def mu_law_encode(audio: torch.Tensor, quantization_channels: int) -> torch.Tens
 
 
 def mu_law_decode(codes: torch.Tensor, quantization_channels: int) -> torch.Tensor:
-    """int codes in [0, Q-1] -> float waveform in [-1, 1]."""
+    """int codes in [0, Q-1] -> float waveform in [-1, 1], through a table
+    of the Q values: a code decodes to the same float wherever it stands
+    (a vectorised ``pow`` on the CPU can round a vector's tail otherwise),
+    so a stream decoded chunk by chunk equals the one-shot decode."""
+    codes = torch.as_tensor(codes)
     mu = float(quantization_channels - 1)
-    signal = 2.0 * (torch.as_tensor(codes).to(torch.float32) / mu) - 1.0
+    levels = torch.arange(quantization_channels, dtype=torch.float32,
+                          device=codes.device)
+    signal = 2.0 * (levels / mu) - 1.0
     magnitude = (1.0 / mu) * (torch.pow(1.0 + mu, signal.abs()) - 1.0)
-    return torch.sign(signal) * magnitude
+    return (torch.sign(signal) * magnitude)[codes.to(torch.int64)]

@@ -4,7 +4,11 @@ to linear spectra.
 
 Port of the eval path of ``nspeech_tpu/models/tacotron2.py``. The decoder
 step is prenet -> attention LSTM -> location-sensitive attention -> 2 LSTMs
--> r-frame projection, run by :func:`decoder.scan_autoregressive`.
+-> r-frame projection, run by :func:`decoder.scan_autoregressive`. The
+streaming hooks (:meth:`Tacotron2.attention_context`,
+:meth:`Tacotron2.make_eval_step`, :meth:`Tacotron2.postnet_residual`) are
+the pieces :meth:`Tacotron2.forward` is built from, so the one-shot path
+and the stream share one encoder, one decoder step and one postnet.
 """
 
 from __future__ import annotations
@@ -111,14 +115,14 @@ class Tacotron2:
                 (z(batch, cfg.decoder_lstm_units), z(batch, cfg.decoder_lstm_units)),
                 (z(batch, cfg.decoder_lstm_units), z(batch, cfg.decoder_lstm_units)))
 
+    # -- streaming hooks ------------------------------------------------------
+
     @torch.no_grad()
-    def forward(self, params, state, text_inputs: torch.Tensor,
-                input_lengths: torch.Tensor,
-                speaker_ids: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
-        """Inference forward: text ids [N, T_in] -> mel_outputs [N, T, M],
-        linear_outputs [N, T, F], alignments [N, T_in, S], decoder_steps [N].
-        Rows of length 0 are padding: finished from the start."""
-        cfg = self.cfg
+    def attention_context(self, params, state, text_inputs: torch.Tensor,
+                          input_lengths: torch.Tensor,
+                          speaker_ids: Optional[torch.Tensor] = None):
+        """Encoder side of inference: ``(step_ctx, decoder carry0)`` for
+        :meth:`make_eval_step` and the decoder's chunked decode."""
         n, t_in = text_inputs.shape
         dev = text_inputs.device
         embedded = L.embedding(params["embedding"], text_inputs)
@@ -131,15 +135,39 @@ class Tacotron2:
         # max(len, 1) keeps the softmax finite for length-0 padding rows
         mask = (torch.arange(t_in, device=dev)[None, :]
                 < torch.clamp(input_lengths, min=1)[:, None])
-        step = self._make_step(params, keys_mem, enc_out, mask, spk)
+        return ((keys_mem, enc_out, mask, spk),
+                self._decoder_carry0(n, t_in, dev))
+
+    def make_eval_step(self, params, step_ctx):
+        """The decoder step ``(carry, x) -> (carry, (out, align))`` over
+        :meth:`attention_context`'s ``step_ctx``."""
+        keys_mem, enc_out, mask, spk = step_ctx
+        return self._make_step(params, keys_mem, enc_out, mask, spk)
+
+    @torch.no_grad()
+    def postnet_residual(self, params, state, frames: torch.Tensor) -> torch.Tensor:
+        """Postnet over decoder frames [N, T, M] (or a window of them):
+        mel = frames + this residual."""
+        return M.postnet(params["postnet"], state["postnet"], frames)
+
+    @torch.no_grad()
+    def forward(self, params, state, text_inputs: torch.Tensor,
+                input_lengths: torch.Tensor,
+                speaker_ids: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+        """Inference forward: text ids [N, T_in] -> mel_outputs [N, T, M],
+        linear_outputs [N, T, F], alignments [N, T_in, S], decoder_steps [N].
+        Rows of length 0 are padding: finished from the start."""
+        cfg = self.cfg
+        ctx, carry0 = self.attention_context(params, state, text_inputs,
+                                             input_lengths, speaker_ids)
         outs, aligns, steps = D.scan_autoregressive(
-            step, self._decoder_carry0(n, t_in, dev), n, cfg.num_mels,
-            cfg.outputs_per_step, cfg.max_iters,
+            self.make_eval_step(params, ctx), carry0, text_inputs.shape[0],
+            cfg.num_mels, cfg.outputs_per_step, cfg.max_iters,
             stop_threshold=cfg.get("stop_threshold", 0.0),
             initial_finished=input_lengths < 1)
         decoder_out = D.assemble_outputs(outs, cfg.num_mels)
-        mel_outputs = decoder_out + M.postnet(params["postnet"],
-                                              state["postnet"], decoder_out)
+        mel_outputs = decoder_out + self.postnet_residual(params, state,
+                                                          decoder_out)
         expand_out = M.conv_and_lstm(params["expand"], state["expand"],
                                      self._expand_meta, mel_outputs, None)
         return {"mel_outputs": mel_outputs,

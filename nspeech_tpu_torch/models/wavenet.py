@@ -7,10 +7,11 @@ package's tree: ``causal`` [fw, Q, R]; per layer ``filter``/``gate``
 ``gc_*``/``lc_*`` [1, C, DC] and biases; ``post1`` [1, S, S], ``post2``
 [1, S, Q]; ``gc_embedding`` [cardinality, gc_channels].
 
-:meth:`WaveNet.generate` is the plain version of the CUDA sampler
-(``ops/cuda/wavenet_gen.py``): it runs the same per-sample recurrence one
-PyTorch op at a time, and at temperature > 0 draws the sampler's Philox
-Gumbel noise, so the two pick the same codes from the same logits.
+:meth:`WaveNet.generate` and :meth:`WaveNet.generate_chunk` are the plain
+versions of the CUDA sampler (``ops/cuda/wavenet_gen.py``): they run the
+same per-sample recurrence one PyTorch op at a time from the same carried
+state, and at temperature > 0 draw the sampler's Philox Gumbel noise, so
+the two pick the same codes from the same logits.
 """
 
 from __future__ import annotations
@@ -195,16 +196,16 @@ class WaveNet:
     # ------------------------------------------------------------------
 
     def _gen_step(self, params: Params, code_in: torch.Tensor,
-                  prev_code: Optional[torch.Tensor], t: int, rings,
+                  prev_code: torch.Tensor, t: int, rings,
                   gc: Optional[torch.Tensor], lc_t: Optional[torch.Tensor]):
-        """One step on input codes [N]. ``prev_code`` is the previous
-        step's input (None at t=0, where the causal conv's past tap is
-        zero). Updates ``rings`` (per layer [d, N, R]) in place and
-        returns the logits [N, Q]."""
+        """One step at absolute sample ``t`` on input codes [N].
+        ``prev_code`` [N] is the previous step's input, -1 where the causal
+        conv's past tap is zero (at t=0). Updates ``rings`` (per layer
+        [d, N, R]) in place and returns the logits [N, Q]."""
         w = params["causal"]
         current = w[1][code_in]
-        if prev_code is not None:
-            current = w[0][prev_code] + current
+        current = torch.where((prev_code >= 0)[:, None],
+                              w[0][prev_code.clamp(min=0)] + current, current)
         skips = None
         for lp, dilation, ring in zip(params["layers"], self.dilations, rings):
             slot = t % dilation
@@ -237,6 +238,90 @@ class WaveNet:
             logits = logits + params["post2_bias"]
         return logits
 
+    def generate_carry0(self, batch: int = 1, device="cpu"):
+        """Initial carry ``(t0, code [N], prev [N], rings [N, sum(d), R])``
+        of :meth:`generate_chunk`: sample 0, the mid-scale silence code as
+        the first input, no previous input (-1), zeroed rings. The rings
+        are the CUDA sampler's layout: layer l's ring is rows
+        ``sum(d[:l]) .. + d[l]``, its slot for sample t is ``t mod d[l]``."""
+        Q, R = self.quantization_channels, self.residual_channels
+        return (0,
+                torch.full((batch,), Q // 2, dtype=torch.int32, device=device),
+                torch.full((batch,), -1, dtype=torch.int32, device=device),
+                torch.zeros(batch, sum(self.dilations), R, device=device))
+
+    def _check_generate(self, lc):
+        if self.scalar_input or self.filter_width != 2:
+            raise NotImplementedError(
+                "Fast generation supports filter_width=2 one-hot models")
+        if self.lc_channels and lc is None:
+            raise ValueError(
+                "model has lc_channels=%d; pass lc= (per-sample local "
+                "conditioning) to generate" % self.lc_channels)
+        if lc is not None and not self.lc_channels:
+            raise ValueError("lc given but model has lc_channels=0")
+
+    def sample(self, params: Params, carry, n_steps: int, seed: int, gc,
+               lc: Optional[torch.Tensor], temperature: float,
+               forced: Optional[torch.Tensor] = None,
+               logits_all: Optional[list] = None):
+        """The sampling loop of :meth:`generate` and :meth:`generate_chunk`:
+        ``n_steps`` steps from ``carry`` (left as it was) with the embedded
+        speakers ``gc`` and per-step ``lc`` [N, T, M] (zero past T). Step i
+        takes ``forced[:, i]`` as its input while i < forced's length (so
+        a check can feed another sampler's codes), else the code sampled
+        at the step before; its logits are appended to ``logits_all``.
+        Returns (codes [N, n_steps] int64, new carry)."""
+        t0, code, prev, rings = carry
+        dev = rings.device
+        batch, Q = rings.shape[0], self.quantization_channels
+        if lc is not None:
+            lc = torch.as_tensor(lc, dtype=torch.float32, device=dev)
+            if lc.shape[1] < n_steps:
+                lc = torch.nn.functional.pad(lc, (0, 0, 0, n_steps - lc.shape[1]))
+        rings = rings.clone()
+        views, row = [], 0
+        for d in self.dilations:                # per layer [d, N, R] views
+            views.append(rings[:, row:row + d].transpose(0, 1))
+            row += d
+        code, prev = code.to(torch.int64), prev.to(torch.int64)
+        n_forced = 0 if forced is None else forced.shape[1]
+        samples = []
+        for i in range(n_steps):
+            t = t0 + i
+            code_in = forced[:, i] if i < n_forced else code
+            logits = self._gen_step(params, code_in, prev, t, views, gc,
+                                    None if lc is None else lc[:, i])
+            prev = code_in
+            if temperature <= 0.0:
+                code = torch.argmax(logits, dim=-1)
+            else:
+                g = gumbel_noise(seed, torch.tensor([t], device=dev),
+                                 batch, Q)[0]
+                code = torch.argmax(logits * (1.0 / temperature) + g, dim=-1)
+            samples.append(code)
+            if logits_all is not None:
+                logits_all.append(logits)
+        out = torch.stack(samples, dim=1)
+        return out, (t0 + n_steps, code.to(torch.int32),
+                     prev.to(torch.int32), rings)
+
+    def generate_chunk(self, params: Params, carry, n_samples: int,
+                       seed: int = 0, gc_ids=None,
+                       lc: Optional[torch.Tensor] = None,   # [N, >= n_samples, M]
+                       temperature: float = 1.0):
+        """Run ``n_samples`` sampling steps from ``carry`` (see
+        :meth:`generate_carry0`; it is left as it was) and return
+        ``(codes [N, n_samples] int32, new carry)``: the streaming form of
+        :meth:`generate`. Noise is keyed by ``seed`` at the absolute
+        sample index, so chained chunks give the codes of one
+        :meth:`generate` call at every temperature."""
+        self._check_generate(lc)
+        codes, carry = self.sample(params, carry, n_samples, seed,
+                                   self._embed_gc(params, gc_ids), lc,
+                                   temperature)
+        return codes.to(torch.int32), carry
+
     def generate(
         self,
         params: Params,
@@ -259,48 +344,20 @@ class WaveNet:
         Priming feeds ``seed_codes`` as the inputs of the first steps; the
         emission of step t is the prediction for time t+1, so the first
         free sample is step ``prime_len - 1``."""
-        if self.scalar_input or self.filter_width != 2:
-            raise NotImplementedError(
-                "Fast generation supports filter_width=2 one-hot models")
-        if self.lc_channels and lc is None:
-            raise ValueError(
-                "model has lc_channels=%d; pass lc= (per-sample local "
-                "conditioning) to generate" % self.lc_channels)
-        if lc is not None and not self.lc_channels:
-            raise ValueError("lc given but model has lc_channels=0")
-        Q, R = self.quantization_channels, self.residual_channels
+        self._check_generate(lc)
         dev = params["causal"].device
-        gc = self._embed_gc(params, gc_ids)
         prime_len = 0 if seed_codes is None else int(seed_codes.shape[1])
         total = prime_len + n_samples
-        if lc is not None:
-            lc = torch.as_tensor(lc, dtype=torch.float32, device=dev)
-            if lc.shape[1] < total:
-                lc = torch.nn.functional.pad(lc, (0, 0, 0, total - lc.shape[1]))
         forced = None
         if seed_codes is not None:
             forced = torch.as_tensor(seed_codes, device=dev).to(torch.int64)
-        rings = [torch.zeros(d, batch, R, device=dev) for d in self.dilations]
-        code = torch.full((batch,), Q // 2, dtype=torch.int64, device=dev)
-        prev = None
-        samples, logits_all = [], []
-        for t in range(total):
-            code_in = forced[:, t] if t < prime_len else code
-            logits = self._gen_step(params, code_in, prev, t, rings, gc,
-                                    None if lc is None else lc[:, t])
-            prev = code_in
-            if temperature <= 0.0:
-                code = torch.argmax(logits, dim=-1)
-            else:
-                g = gumbel_noise(seed, torch.tensor([t], device=dev),
-                                 batch, Q)[0]
-                code = torch.argmax(logits * (1.0 / temperature) + g, dim=-1)
-            samples.append(code)
-            if return_logits:
-                logits_all.append(logits)
+        logits_all = [] if return_logits else None
+        codes, _ = self.sample(params, self.generate_carry0(batch, dev),
+                               total, seed, self._embed_gc(params, gc_ids),
+                               lc, temperature, forced, logits_all)
         skip = 0 if include_prime else max(prime_len - 1, 0)
         end = None if include_prime else skip + n_samples
-        out = torch.stack(samples, dim=1)[:, skip:end].to(torch.int32)
+        out = codes[:, skip:end].to(torch.int32)
         if return_logits:
             return out, torch.stack(logits_all, dim=1)[:, skip:end]
         return out

@@ -1,30 +1,36 @@
 """WaveNet sampler: the CUDA kernel ``csrc/wavenet_gen.cu`` and its wrapper.
 
 Replaces the Pallas TPU kernel of ``nspeech_tpu/ops/pallas/wavenet_gen.py``
-(``PallasWaveNetGenerator``, one-shot forms at batch 1 and batch B with
-per-stream speakers). :class:`CudaWaveNetGenerator` has the surface of
-``PallasWaveNetGenerator.__call__``: on CUDA tensors it launches the
-kernel (or raises); on CPU tensors it runs the plain version,
-``WaveNet.generate``, which computes the same recurrence and draws the
+(``PallasWaveNetGenerator``) in its one-shot forms (batch 1, and batch B
+with per-stream speakers) and its carried-state streaming form.
+:class:`CudaWaveNetGenerator` has the surface of
+``PallasWaveNetGenerator.__call__``, ``chunk_carry0`` and
+``generate_chunk``: on CUDA tensors it launches the kernel (or raises); on
+CPU tensors it runs the plain versions, ``WaveNet.generate`` and
+``WaveNet.generate_chunk``, which compute the same recurrence and draw the
 same Philox noise one PyTorch op at a time.
 
 The kernel's weight layout (:func:`pack_params`) is the port's own, not
 the TPU's 128-lane packing: the filter and gate halves and the lc
 projection of each layer are one [2R + M, 2DC] matrix over the input row
 ``[ring state | current | lc_t]``; the per-stream bias (layer biases plus
-the speaker's gc projection) is computed here in PyTorch.
+the speaker's gc projection) is computed here in PyTorch. The carry is
+``WaveNet.generate_carry0``'s: ``(t0, code [B], prev [B], rings [B, sum(d),
+R])``, the kernel's own ring layout, so a carry made on the card resumes
+in the plain version and the other way round.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from nspeech_tpu_torch.ops.cuda.build import build
 
 SOURCE = "wavenet_gen.cu"
+MAX_LAYERS = 480   # the kernel's 512 threads less one warp (csrc/wavenet_gen.cu)
 
 
 def pack_params(net, params, gc_ids=None) -> Dict[str, torch.Tensor]:
@@ -88,18 +94,23 @@ class WaveNetSampler:
         if self._fn is None:
             lib, _ = build(SOURCE)
             fn = lib.wavenet_sample
-            fn.argtypes = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 9
-                           + [ctypes.c_float, ctypes.c_ulonglong,
-                              ctypes.c_void_p])
+            fn.argtypes = ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 9
+                           + [ctypes.c_ulonglong, ctypes.c_float,
+                              ctypes.c_ulonglong, ctypes.c_void_p])
             fn.restype = ctypes.c_int
             self._fn = fn
         return self._fn
 
     def __call__(self, packed: Dict[str, torch.Tensor],
                  lc: Optional[torch.Tensor], n_samples: int, batch: int,
-                 temperature: float, seed: int) -> torch.Tensor:
-        """Codes [batch, n_samples] int32 from the kernel. ``lc`` is
-        [batch, >= n_samples, M] float32 (None when M == 0)."""
+                 temperature: float, seed: int, rings: torch.Tensor,
+                 state: torch.Tensor, t0: int) -> torch.Tensor:
+        """Codes [batch, n_samples] int32 from the kernel, run from the
+        carried state, which it updates in place: ``rings`` [batch,
+        sum(d), R] float32, ``state`` [batch, 2] int32 (next input code,
+        previous input code or -1), ``t0`` the absolute index of the first
+        sample. ``lc`` is [batch, >= n_samples, M] float32 (None when
+        M == 0)."""
         dev = packed["wc"].device
         if dev.type != "cuda":
             raise ValueError(f"the CUDA sampler needs CUDA tensors, got {dev}")
@@ -113,15 +124,26 @@ class WaveNetSampler:
         DC = F // 2
         S = packed["post1"].shape[0]
         M = K - 2 * R
-        if two != 2 or any(c % 4 for c in (R, DC, S, Q)):
-            raise ValueError("the sampler needs filter_width 2 and R, DC, S, Q "
-                             "multiples of 4")
+        if two != 2 or any(c % 4 for c in (R, DC, S, Q)) or L > MAX_LAYERS:
+            raise ValueError("the sampler needs filter_width 2, R, DC, S, Q "
+                             f"multiples of 4 and at most {MAX_LAYERS} layers")
+        if n_samples < 1 or t0 < 0:
+            raise ValueError(f"need n_samples >= 1 and t0 >= 0, got "
+                             f"{n_samples} and {t0}")
         G = packed["bfg"].shape[1]
         bfg = packed["bfg"]
         if G == 1 and batch > 1:
             bfg = bfg.expand(L, batch, F).contiguous()
         elif G != batch:
             raise ValueError(f"{G} speakers for a batch of {batch}")
+        ring_rows = int(packed["dilations"].sum())
+        for name, v, shape, dtype in (
+                ("rings", rings, (batch, ring_rows, R), torch.float32),
+                ("state", state, (batch, 2), torch.int32)):
+            if (tuple(v.shape) != shape or v.dtype != dtype or v.device != dev
+                    or not v.is_contiguous()):
+                raise ValueError(f"{name} must be a contiguous {dtype} "
+                                 f"tensor of shape {shape} on {dev}")
         lc_ptr = None
         if M:
             if lc is None or lc.shape[0] != batch or lc.shape[2] != M:
@@ -132,8 +154,6 @@ class WaveNetSampler:
                 lc = torch.nn.functional.pad(lc, (0, 0, 0, n_samples - lc.shape[1]))
             lc = lc[:, :n_samples].contiguous()
             lc_ptr = lc.data_ptr()
-        ring_rows = int(packed["dilations"].sum())
-        rings = torch.zeros(batch, ring_rows, R, device=dev)
         codes = torch.empty(batch, n_samples, dtype=torch.int32, device=dev)
         inv_t = 1.0 / temperature if temperature > 0.0 else 0.0
         fn = self._lib_fn()
@@ -143,16 +163,17 @@ class WaveNetSampler:
                 "wc", "wfg")), bfg.data_ptr(), *(packed[k].data_ptr() for k in (
                     "wdense", "bdense", "wskip", "bskip", "post1", "b1",
                     "post2", "b2", "dilations")),
-                lc_ptr, rings.data_ptr(), codes.data_ptr(),
+                lc_ptr, rings.data_ptr(), state.data_ptr(), codes.data_ptr(),
                 batch, n_samples, L, R, DC, S, Q, M, ring_rows,
-                inv_t, seed & 0xFFFFFFFFFFFFFFFF, stream)
+                t0, inv_t, seed & 0xFFFFFFFFFFFFFFFF, stream)
         if rc != 0:
             raise RuntimeError(f"wavenet_sample launch failed: CUDA error {rc}")
         self.launches += 1
         return codes
 
 
-SAMPLER = WaveNetSampler()
+SAMPLER = WaveNetSampler()            # one-shot launches (K1, K2)
+CARRIED_SAMPLER = WaveNetSampler()    # carried-state launches (K4)
 
 
 class CudaWaveNetGenerator:
@@ -173,13 +194,8 @@ class CudaWaveNetGenerator:
         self.packed = (pack_params(net, params, gc_ids)
                        if self.device.type == "cuda" else None)
 
-    def __call__(self, n_samples: int, seed: int = 0, batch: int = 1,
-                 seed_codes=None, lc: Optional[torch.Tensor] = None,
-                 temperature: float = 1.0,
-                 deterministic: bool = False) -> torch.Tensor:
-        """Mu-law codes [batch, n_samples] int32; ``lc`` is per-sample
-        conditioning [batch, >= n_samples, M]. Temperature <= 0 (or
-        ``deterministic``) is argmax."""
+    def _check_lc(self, lc, batch: int) -> torch.device:
+        """Validates the conditioning; returns the device to run on."""
         use_lc = lc is not None
         if use_lc and not self.net.lc_channels:
             raise ValueError("model has lc_channels=0; cannot condition")
@@ -187,15 +203,58 @@ class CudaWaveNetGenerator:
             raise ValueError("locally-conditioned model needs lc=")
         if use_lc and lc.shape[0] != batch:
             raise ValueError(f"lc batch {lc.shape[0]} != generation batch {batch}")
+        dev = lc.device if use_lc else self.device
+        if dev != self.device:
+            raise ValueError(f"lc on {dev}, weights on {self.device}")
+        return dev
+
+    def __call__(self, n_samples: int, seed: int = 0, batch: int = 1,
+                 seed_codes=None, lc: Optional[torch.Tensor] = None,
+                 temperature: float = 1.0,
+                 deterministic: bool = False) -> torch.Tensor:
+        """Mu-law codes [batch, n_samples] int32; ``lc`` is per-sample
+        conditioning [batch, >= n_samples, M]. Temperature <= 0 (or
+        ``deterministic``) is argmax."""
+        dev = self._check_lc(lc, batch)
         if seed_codes is not None:
             raise NotImplementedError("priming is not ported to the sampler yet")
         if deterministic:
             temperature = 0.0
-        dev = lc.device if use_lc else self.device
-        if dev != self.device:
-            raise ValueError(f"lc on {dev}, weights on {self.device}")
         if dev.type == "cpu":
             return self.net.generate(self.params, n_samples, seed=seed,
                                      batch=batch, gc_ids=self.gc_ids, lc=lc,
                                      temperature=temperature)
-        return SAMPLER(self.packed, lc, n_samples, batch, temperature, seed)
+        _, code, prev, rings = self.chunk_carry0(batch)
+        state = torch.stack([code, prev], dim=1).contiguous()
+        return SAMPLER(self.packed, lc, n_samples, batch, temperature, seed,
+                       rings, state, 0)
+
+    def chunk_carry0(self, batch: int = 1):
+        """Initial carry for :meth:`generate_chunk` (the fresh state of a
+        one-shot generation), on the weights' device."""
+        return self.net.generate_carry0(batch, device=self.device)
+
+    def generate_chunk(self, carry, n_samples: int, seed: int = 0,
+                       lc: Optional[torch.Tensor] = None,
+                       temperature: float = 1.0, final: bool = False
+                       ) -> Tuple[torch.Tensor, Optional[tuple]]:
+        """Continue a generation: ``n_samples`` (any count >= 1) steps from
+        ``carry``; returns ``(codes [B, n_samples] int32, new carry)``, the
+        carry None with ``final=True``. ``carry`` itself is left as it
+        was, so a generation can resume from it again. Chained chunks give
+        the codes of one :meth:`__call__` with the same seed, at every
+        temperature (ring slots and noise follow the absolute index)."""
+        t0, code, prev, rings = carry
+        batch = code.shape[0]
+        dev = self._check_lc(lc, batch)
+        if dev.type == "cpu":
+            codes, new = self.net.generate_chunk(
+                self.params, carry, n_samples, seed=seed, gc_ids=self.gc_ids,
+                lc=lc, temperature=temperature)
+        else:
+            rings = rings.clone()
+            state = torch.stack([code, prev], dim=1).to(torch.int32).contiguous()
+            codes = CARRIED_SAMPLER(self.packed, lc, n_samples, batch,
+                                    temperature, seed, rings, state, int(t0))
+            new = (int(t0) + n_samples, state[:, 0], state[:, 1], rings)
+        return codes, (None if final else new)

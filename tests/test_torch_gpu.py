@@ -1,6 +1,7 @@
-"""Card-only tests of the port (marker ``gpu``): the CUDA sampler against
-its plain PyTorch version, the wrapper's checks, and the serving path on
-the card. They skip without a CUDA device.
+"""Card-only tests of the port (marker ``gpu``): the CUDA sampler (one-shot
+and carried-state launches) against its plain PyTorch version, the
+wrapper's checks, and the one-shot and streaming serving paths on the
+card. They skip without a CUDA device.
 
 Unlike the other ``test_torch_*`` files this one imports no JAX, so that it
 runs where only PyTorch is installed:
@@ -10,7 +11,9 @@ runs where only PyTorch is installed:
 (``--noconftest``: the suite's conftest pins JAX to the CPU and needs JAX.)
 Tolerance: the kernel's code must score within 1e-4 of the plain
 version's best score at every step (same inputs, same Philox noise;
-float32 sums in another order)."""
+float32 sums in another order); resumed rings within 1e-4 relative.
+Carried launches against one launch: identical (same kernel, same
+arithmetic, same noise)."""
 
 import numpy as np
 import pytest
@@ -42,6 +45,24 @@ def cuda():
 def tiny_vocoder(device, extra=""):
     net = WaveNet(load_config("wavenet").parse(TINY_WN + extra))
     return net, tree_to(net.init(0), device)
+
+
+def score_gap(net, params, carry, codes, lc, gc, seed, temperature):
+    """Largest gap between the plain version's best score and the score of
+    the kernel's code, the plain version fed the kernel's codes as its
+    inputs from ``carry``; returns (gap, the plain version's new carry)."""
+    batch, n = codes.shape
+    inputs = torch.cat([carry[1][:, None].long(), codes[:, :-1].long()], 1)
+    logits = []
+    _, plain_carry = net.sample(params, carry, n, seed, net._embed_gc(params, gc),
+                                lc, temperature, forced=inputs, logits_all=logits)
+    scores = torch.stack(logits, 1)
+    if temperature > 0:
+        t = torch.arange(carry[0], carry[0] + n, device=codes.device)
+        g = gumbel_noise(seed, t, batch, net.quantization_channels)
+        scores = scores * (1.0 / temperature) + g.permute(1, 0, 2)
+    chosen = scores.gather(-1, codes.long()[..., None])[..., 0]
+    return (scores.max(-1).values - chosen).max().item(), plain_carry
 
 
 @pytest.mark.gpu
@@ -108,3 +129,78 @@ def test_text_to_speech_on_card_launches_the_kernel(cuda):
     assert mel.shape == (30, 80)
     for w in [wav, *wavs]:
         assert w.size > 0 and np.isfinite(w).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch,temperature", [(1, 0.0), (3, 1.0)])
+def test_carried_launches_equal_one_launch(cuda, batch, temperature):
+    net, params = tiny_vocoder(cuda)
+    n = 300
+    lc = torch.rand(batch, n, 5, device=cuda,
+                    generator=torch.Generator(cuda).manual_seed(1))
+    gen = CudaWaveNetGenerator(net, params, gc_ids=[2, 0, 1][:batch])
+    one = gen(n, seed=4, batch=batch, lc=lc, temperature=temperature)
+    before = wavenet_gen.CARRIED_SAMPLER.launches
+    carry, parts, s = gen.chunk_carry0(batch), [], 0
+    for size in (100, 1, 199):
+        codes, carry = gen.generate_chunk(carry, size, seed=4,
+                                          lc=lc[:, s:s + size],
+                                          temperature=temperature)
+        parts.append(codes)
+        s += size
+    assert wavenet_gen.CARRIED_SAMPLER.launches == before + 3
+    assert torch.equal(torch.cat(parts, 1), one)
+    assert carry[0] == n and torch.equal(carry[1], one[:, -1])
+    assert torch.equal(carry[2], one[:, -2])
+
+
+@pytest.mark.gpu
+def test_kernel_resumes_a_carry_like_plain(cuda):
+    """A carry the kernel made, far into a stream (t0 = 30000 + 77), is
+    resumed by the kernel and by the plain version: teacher-forced scores
+    agree and so do the carries they leave. The input carry is left as
+    it was."""
+    net, params = tiny_vocoder(cuda)
+    gen = CudaWaveNetGenerator(net, params, gc_ids=[1, 2])
+    lc = torch.rand(2, 30077 + 200, 5, device=cuda,
+                    generator=torch.Generator(cuda).manual_seed(2))
+    _, carry = gen.generate_chunk(gen.chunk_carry0(2), 30077, seed=8,
+                                  lc=lc[:, :30077], temperature=1.0)
+    saved = [carry[0]] + [v.clone() for v in carry[1:]]
+    codes, k_carry = gen.generate_chunk(carry, 200, seed=8, lc=lc[:, 30077:],
+                                        temperature=1.0)
+    assert carry[0] == saved[0]
+    assert all(torch.equal(v, w) for v, w in zip(carry[1:], saved[1:]))
+    gap, p_carry = score_gap(net, params, carry, codes, lc[:, 30077:], [1, 2],
+                             8, 1.0)
+    assert gap <= 1e-4
+    assert k_carry[0] == p_carry[0] == 30277
+    assert torch.equal(k_carry[1], p_carry[1])
+    assert torch.equal(k_carry[2], p_carry[2])
+    scale = p_carry[3].abs().max()
+    assert (k_carry[3] - p_carry[3]).abs().max() <= 1e-4 * scale
+
+
+@pytest.mark.gpu
+def test_streaming_on_card_launches_the_carried_kernel(cuda):
+    from nspeech_tpu_torch.serving import StreamingTTS, Synthesizer, WaveNetVocoder
+
+    cfg = load_config("taco2").parse(
+        "max_iters=6,outputs_per_step=2,encoder_conv_layers=1,"
+        "postnet_conv_layers=2,postnet_conv_width=3,expand_conv_layers=1,"
+        "encoder_conv_channels=16,attention_dim=16,postnet_conv_channels=16,"
+        "expand_conv_channels=16,decoder_lstm_units=16,encoder_lstm_units=8,"
+        "expand_lstm_units=8,embedding_dim=16,num_speakers=3")
+    model = Tacotron2(cfg)
+    params, bn = model.init(0)
+    syn = Synthesizer(cfg, text_bucket=16).set_variables(params, bn, model=model)
+    vcfg = load_config("wavenet").parse(TINY_WN.replace("lc_channels=5", "lc_channels=80"))
+    net = WaveNet(vcfg)
+    voc = WaveNetVocoder(vcfg).set_variables(net, net.init(1))
+    tts = StreamingTTS(syn, voc, chunk_frames=4, temperature=1.0, text_bucket=16)
+    before = wavenet_gen.CARRIED_SAMPLER.launches
+    wavs = tts.synthesize_batch(["hello on the card", "two"], [0, 2])
+    assert wavenet_gen.CARRIED_SAMPLER.launches == before + 2   # 1000 + 2000 samples
+    ref = voc.vocode_batch(tts.last_mel_batch, [0, 2], temperature=1.0)
+    for i, w in enumerate(wavs):
+        assert w.size == 3000 and np.array_equal(w, ref[i])
