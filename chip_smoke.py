@@ -20,11 +20,24 @@
    made must score within SCORE_TOL of the plain ``WaveNet.sample`` from
    the same carry, teacher-forced, and leave the same carry (t0, code and
    prev exactly, rings within RING_TOL relative).
-4. Serves 3 ``TextToSpeech.synthesize`` requests and one
+4. Holds the kernel's primed launches (PRIME_LEN forced seed codes, then
+   N_PRIMED kept samples, in the same 4 cases) against the plain
+   ``WaveNet.generate(seed_codes=...)``, teacher-forced (every kept code
+   within SCORE_TOL of the plain best score), and against an unprimed
+   launch whose own first PRIME_LEN inputs are the seed (identical kept
+   codes).
+5. Runs the two CLIs in-process on the card from serving checkpoints
+   written into a temporary directory: ``cli.generate_wavenet`` primed
+   from a seeded 1 s wav with a seeded mel and ``--gc-id 1`` (CLI_SAMPLES
+   samples; counts the primed launches), then with ``--stream-chunk 2000``
+   (carried launches), then ``cli.synthesize`` with a full-width
+   Tacotron-2 checkpoint and the vocoder checkpoint (one-shot launches).
+   Prints the wall times, samples/s and the priming time.
+6. Serves 3 ``TextToSpeech.synthesize`` requests and one
    ``synthesize_batch`` of 4 with speaker ids at full Tacotron-2 and
    WaveNet width (seeded weights, decoder cut to MAX_ITERS steps), counts
    the sampler's launches on that path and checks every waveform.
-5. Streams at the same widths through ``StreamingTTS`` (chunk_frames=40,
+7. Streams at the same widths through ``StreamingTTS`` (chunk_frames=40,
    growth=4, T=1): one ``stream`` and one ``stream_batch`` of 2 with
    speakers. Prints time to first audio, wall time, chunk sizes, the time
    from each launch to its chunk's delivery and audio seconds per wall
@@ -32,7 +45,8 @@
    stream equals ``WaveNetVocoder.vocode_batch`` of the stream's own mel
    at the same seed and that the mel is within MEL_TOL of
    ``Tacotron2.forward``'s.
-6. Prints one ``{"kernels": [...]}`` line and, last, the
+8. Prints one ``{"kernels": [...]}`` line (one-shot, carried and primed
+   records) and, last, the
    ``{"ok": true, "device": ...}`` line. Exits non-zero without a card or
    when any check fails.
 """
@@ -42,6 +56,7 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -53,6 +68,9 @@ CARRY_SPLIT = (700, 1, 1299)   # carried launches that make N_CHECK samples
 RESUME_T0 = 30000       # where the resumed carried launch starts
 N_RESUME = 300          # samples of the resumed launch
 RING_TOL = 1e-3         # rings after the resume, relative to their largest
+PRIME_LEN = 600         # forced codes per primed kernel case
+N_PRIMED = 300          # samples kept after them
+CLI_SAMPLES = 4000      # samples per generation CLI run
 MAX_ITERS = 40          # decoder steps per request: 200 frames at r=5
 MEL_TOL = 1e-3          # windowed vs full-buffer postnet (float32 convs)
 VOCODER_HPARAMS = "lc_channels=80,gc_channels=16,gc_category_cardinality=4"
@@ -98,12 +116,14 @@ def seeded_lc(seed: int, batch: int, n: int, hop: int) -> torch.Tensor:
 
 
 def sampler_bound(packed, batch: int, n: int, m: int, flops: float,
-                  carried: bool = False):
-    """(least time in ms, "bytes" or "operations"): each weight, lc value
-    and code moved once (and, for a carried launch, the carry read and
-    written once), against the float32 operations of the recurrence."""
+                  carried: bool = False, prime_len: int = 0):
+    """(least time in ms, "bytes" or "operations"): each weight, lc value,
+    seed code and code moved once (and, for a carried launch, the carry
+    read and written once), against the float32 operations of the
+    recurrence."""
     weight_bytes = sum(v.numel() * v.element_size() for v in packed.values())
-    moved = weight_bytes + batch * n * m * 4 + batch * n * 4
+    moved = (weight_bytes + batch * n * m * 4 + batch * n * 4
+             + batch * prime_len * 4)
     if carried:
         ring_rows = int(packed["dilations"].sum())
         R = packed["wc"].shape[2]
@@ -315,6 +335,206 @@ def carried_phase():
     return record
 
 
+def primed_flops(net, batch: int, prime_len: int, n: int) -> float:
+    """The work the kept codes of a primed launch need: the layer stack
+    for all P - 1 + n steps, the skip sum and the post-net for the n kept
+    steps only."""
+    R, DC, S, Q, M = (net.residual_channels, net.dilation_channels,
+                      net.skip_channels, net.quantization_channels,
+                      net.lc_channels)
+    L = len(net.dilations)
+    stack = L * ((2 * R + M) * 2 * DC + DC * R)
+    head = L * DC * S + S * S + S * Q
+    return 2.0 * batch * ((prime_len - 1 + n) * stack + n * head)
+
+
+def primed_case(net, params, batch, gc_ids, temperature, seed):
+    """Primed kernel launch (PRIME_LEN forced codes, N_PRIMED kept) vs the
+    plain version fed the seed and then the kernel's codes, teacher-forced;
+    and vs one unprimed launch whose own inputs are the seed: the kept
+    codes must be identical. Returns a result dict."""
+    from nspeech_tpu_torch.ops.cuda.wavenet_gen import CudaWaveNetGenerator
+    from nspeech_tpu_torch.ops.philox import gumbel_noise
+
+    Q, P, n = net.quantization_channels, PRIME_LEN, N_PRIMED
+    lc = seeded_lc(seed, batch, P + n, 250)
+    gen = CudaWaveNetGenerator(net, params, gc_ids=gc_ids)
+    # an unprimed launch over P + n samples; its first P inputs (the
+    # mid-scale code, then its own codes) become the seed
+    free = gen(P + n, seed=seed, batch=batch, lc=lc, temperature=temperature)
+    seeds = torch.cat([torch.full((batch, 1), Q // 2, device="cuda",
+                                  dtype=torch.int32), free[:, :P - 1]], dim=1)
+    seeds = seeds.contiguous()
+    gen(n, seed=seed, batch=batch, seed_codes=seeds, lc=lc,
+        temperature=temperature)
+    torch.cuda.synchronize()
+    codes = None
+
+    def run():
+        nonlocal codes
+        codes = gen(n, seed=seed, batch=batch, seed_codes=seeds, lc=lc,
+                    temperature=temperature)
+
+    ms = cuda_ms(run)
+    same = torch.equal(codes, free[:, P - 1:P - 1 + n])
+    inputs = torch.cat([seeds, codes[:, :-1]], dim=1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, logits = net.generate(params, 0, seed=seed, batch=batch, gc_ids=gc_ids,
+                             lc=lc, seed_codes=inputs, temperature=temperature,
+                             return_logits=True, include_prime=True)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    scores = logits[:, P - 1:]
+    if temperature > 0:
+        g = gumbel_noise(seed, torch.arange(P - 1, P - 1 + n, device="cuda"),
+                         batch, Q)
+        scores = scores * (1.0 / temperature) + g.permute(1, 0, 2)
+    chosen = scores.gather(-1, codes.long()[..., None])[..., 0]
+    gap = (scores.max(dim=-1).values - chosen).max().item()
+    ok = bool(np.isfinite(gap) and gap <= SCORE_TOL and same
+              and int(codes.min()) >= 0 and int(codes.max()) < Q)
+    print(f"primed kernel (P={P}, n={n}) B={batch} gc={gc_ids} T={temperature}: "
+          f"max score gap vs plain {gap:.3g} (tol {SCORE_TOL}), kept codes == "
+          f"unprimed launch fed the same inputs {same}, kernel {ms:.3f} ms "
+          f"({ms * 1e3 / (P - 1 + n):.1f} us per step), plain {plain_ms:.1f} ms "
+          f"-> {'ok' if ok else 'FAIL'}")
+    return {"ok": ok, "gap": gap, "ms": ms, "plain_ms": plain_ms, "gen": gen}
+
+
+def primed_phase():
+    _, net, params = vocoder(0)
+    results = [primed_case(net, params, batch, gc_ids, temperature, 41 + batch)
+               for batch, gc_ids in ((1, None), (4, [0, 1, 2, 3]))
+               for temperature in (0.0, 1.0)]
+    main = results[1]                  # B=1, T=1
+    bound_ms, bound_by = sampler_bound(
+        main["gen"].packed, 1, PRIME_LEN - 1 + N_PRIMED, net.lc_channels,
+        primed_flops(net, 1, PRIME_LEN, N_PRIMED), prime_len=PRIME_LEN)
+    record = {
+        "name": "wavenet_sampler_primed",
+        "route": "cuda",
+        "source": "nspeech_tpu_torch/csrc/wavenet_gen.cu",
+        "replaces": "nspeech_tpu/ops/pallas/wavenet_gen.py:537",
+        "max_abs_err": max(r["gap"] for r in results),
+        "ms": main["ms"],
+        "plain_ms": main["plain_ms"],
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,
+        "checked": all(r["ok"] for r in results),
+        "shape": f"B=1, {PRIME_LEN} forced codes + {N_PRIMED} samples "
+                 f"(one launch of {PRIME_LEN - 1 + N_PRIMED} steps), full width",
+    }
+    print(f"primed sampler {record['ms']:.3f} ms, plain {record['plain_ms']:.1f} "
+          f"ms (teacher-forced), bound {bound_ms:.4f} ms at B=1 x "
+          f"{PRIME_LEN - 1 + N_PRIMED} steps")
+    return record
+
+
+def cli_phase(tmp: str):
+    """The two CLIs on the card, from serving checkpoints written into
+    ``tmp``: ``generate_wavenet`` primed from a seed wav (K3), then
+    streamed (K4), then ``synthesize`` (Tacotron-2 + vocoder, K1). Returns
+    (ok, primed launches on the primed run)."""
+    import contextlib
+    import io
+    import os
+
+    from scipy.io import wavfile
+
+    from nspeech_tpu_torch.cli import generate_wavenet, synthesize
+    from nspeech_tpu_torch.config import load_config
+    from nspeech_tpu_torch.models.tacotron2 import Tacotron2
+    from nspeech_tpu_torch.ops.cuda import wavenet_gen
+    from nspeech_tpu_torch.train import save_serving_checkpoint
+
+    vcfg, net, vparams = vocoder(3)
+    voc_dir = os.path.join(tmp, "vocoder")
+    save_serving_checkpoint(voc_dir, 1000, "wavenet", vcfg, vparams)
+    rng = np.random.default_rng(5)
+    sr = vcfg.sample_rate
+    t = np.arange(sr) / sr
+    seed = 0.6 * np.sin(2 * np.pi * 220 * t) + 0.1 * rng.standard_normal(sr)
+    seed_path = os.path.join(tmp, "seed.wav")
+    wavfile.write(seed_path, sr, (np.clip(seed, -1, 1) * 32767).astype(np.int16))
+    mel_path = os.path.join(tmp, "mel.npy")
+    frames = (net.receptive_field + CLI_SAMPLES) // 250 + 2
+    np.save(mel_path, rng.random((frames, 80)).astype(np.float32))
+    counters = (wavenet_gen.SAMPLER, wavenet_gen.PRIMED_SAMPLER,
+                wavenet_gen.CARRIED_SAMPLER)
+
+    def run(main, argv):
+        for c in counters:
+            c.launches = 0
+        out = io.StringIO()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        for line in out.getvalue().splitlines():
+            print("  |", line)
+        return wall, [c.launches for c in counters], out.getvalue()
+
+    ok = True
+    primed_wav = os.path.join(tmp, "primed.wav")
+    wall, (one, primed, carried), out = run(generate_wavenet.main, [
+        voc_dir, "--wav_seed", seed_path, "--mel-npy", mel_path, "--gc-id", "1",
+        "--samples", str(CLI_SAMPLES), "--wav_out_path", primed_wav])
+    wav = wavfile.read(primed_wav)[1]
+    gen_s = float(out.split("Generated %d samples in " % CLI_SAMPLES)[1].split("s")[0])
+    good = (primed >= 1 and one == 0 and wav.size == CLI_SAMPLES
+            and f"Primed with {net.receptive_field} seed samples" in out)
+    ok &= good
+    primed_launches = primed
+    # the priming alone: a launch of the same seed with one kept sample
+    gen = wavenet_gen.CudaWaveNetGenerator(net, vparams, gc_ids=[1])
+    seeds = torch.randint(0, net.quantization_channels,
+                          (1, net.receptive_field), dtype=torch.int32,
+                          device="cuda", generator=torch.Generator("cuda").manual_seed(0))
+    lc = seeded_lc(6, 1, net.receptive_field + 1, 250)
+    gen(1, seed_codes=seeds, lc=lc)
+    prime_ms = cuda_ms(lambda: gen(1, seed_codes=seeds, lc=lc))
+    print(f"cli generate_wavenet primed: {wall:.3f} s wall, generation "
+          f"{gen_s:.2f} s as printed ({CLI_SAMPLES / gen_s:.0f} samples/s incl. "
+          f"priming), priming alone {prime_ms:.1f} ms for {net.receptive_field} "
+          f"forced codes ({prime_ms / (gen_s * 1e3):.1%} of the generation); "
+          f"launches one-shot {one}, primed {primed}, carried {carried}; wav "
+          f"{wav.size} samples -> {'ok' if good else 'FAIL'}")
+
+    stream_wav = os.path.join(tmp, "stream.wav")
+    wall, (one, primed, carried), out = run(generate_wavenet.main, [
+        voc_dir, "--mel-npy", mel_path, "--gc-id", "2", "--samples",
+        str(CLI_SAMPLES), "--stream-chunk", "2000", "--wav_out_path", stream_wav])
+    size = (os.path.getsize(stream_wav) - 44) // 2
+    good = carried >= 1 and one == 0 and primed == 0 and size == CLI_SAMPLES
+    ok &= good
+    print(f"cli generate_wavenet --stream-chunk 2000: {wall:.3f} s wall, "
+          f"launches carried {carried}; wav {size} samples -> "
+          f"{'ok' if good else 'FAIL'}")
+
+    tcfg = load_config("taco2")
+    model = Tacotron2(tcfg)
+    params, bn = model.init(1)
+    taco_dir = os.path.join(tmp, "taco2")
+    save_serving_checkpoint(taco_dir, 2000, "taco2", tcfg, params, bn)
+    del params, bn
+    synth_wav = os.path.join(tmp, "synth.wav")
+    wall, (one, primed, carried), out = run(synthesize.main, [
+        "--checkpoint", taco_dir, "--hparams", f"max_iters={MAX_ITERS}",
+        "--vocoder-checkpoint", voc_dir, "--text", "Speech from two checkpoints.",
+        "--out", synth_wav])
+    sr_out, wav = wavfile.read(synth_wav)
+    good = one >= 1 and wav.size > 0 and sr_out == sr
+    ok &= good
+    print(f"cli synthesize: {wall:.3f} s wall (checkpoint loads included), "
+          f"launches one-shot {one}; wav {wav.size} samples -> "
+          f"{'ok' if good else 'FAIL'}")
+    return ok, primed_launches
+
+
 def e2e_phase():
     from nspeech_tpu_torch.config import load_config
     from nspeech_tpu_torch.models.tacotron2 import Tacotron2
@@ -481,11 +701,15 @@ def main() -> int:
     start = time.perf_counter()
     record = kernel_phase()
     carried = carried_phase()
+    primed = primed_phase()
     e2e_ok, record["launches"] = e2e_phase()
     stream_ok, carried["launches"] = streaming_phase()
+    with tempfile.TemporaryDirectory() as tmp:
+        cli_ok, primed["launches"] = cli_phase(tmp)
     print(f"smoke took {time.perf_counter() - start:.1f} s after the card line")
-    print(json.dumps({"kernels": [record, carried]}))
-    if not (record["checked"] and carried["checked"] and e2e_ok and stream_ok):
+    print(json.dumps({"kernels": [record, carried, primed]}))
+    if not (record["checked"] and carried["checked"] and primed["checked"]
+            and e2e_ok and stream_ok and cli_ok):
         print("FAIL", file=sys.stderr)
         return 1
     print(json.dumps({"ok": True, "device": {

@@ -2,10 +2,11 @@
 //
 // Replaces the Pallas TPU kernel nspeech_tpu/ops/pallas/wavenet_gen.py
 // (PallasWaveNetGenerator._get_fn -> pl.pallas_call, body _make_kernel /
-// kernel) in its one-shot forms (K1: batch 1; K2: batch B>1 with
-// per-stream global conditioning) and its carried-state streaming form
-// (K4, carry_io=True): local conditioning (mel) on every sample,
-// Gumbel-max sampling or argmax. Priming (K3) is not here.
+// kernel) in all four of its forms: one-shot (K1: batch 1; K2: batch B>1
+// with per-stream global conditioning), priming (K3, prime_len > 0: the
+// input of step t < prime_len is the forced seed code) and carried-state
+// streaming (K4, carry_io=True); local conditioning (mel) on every
+// sample, Gumbel-max sampling or argmax.
 //
 // One body serves every form. The state a stream carries from one launch
 // to the next is its dilation rings, its next input code and the input
@@ -14,7 +15,13 @@
 // carried launch from the fresh state (zeroed rings, code Q/2, prev -1,
 // t0 = 0). Ring slots and the noise counter use the absolute index
 // t0 + t, so launches of any sizes chained over one carry give the codes
-// of one launch.
+// of one launch. Priming reads forced[b, t0 + t] as the input code while
+// t0 + t < prime_len (a read known when the step starts, off the layer
+// chain); launches without priming pass prime_len = 0. A step whose code
+// is thrown away (t0 + t < prime_len - 1: its successor's input is forced
+// too) runs only the layer stack, which advances the rings, and skips the
+// skip sum, the post-net and the argmax (1.21 of the step's ~1.72 M
+// multiply-adds at full width); it stores the next forced code instead.
 //
 // Per sample and per stream: causal one-hot tap -> L gated dilated layers
 // (ring read at slot (t0 + t) mod d, fg = [state | current | lc_t] @ W_fg
@@ -71,10 +78,11 @@ struct Args {
   const float* b2;       // [Q]
   const int* dilations;  // [L]
   const float* lc;       // [B, T, M] or null when M == 0
+  const int* forced;     // [B, prime_len] seed codes or null when prime_len == 0
   float* rings;          // [B, ring_rows, R] carried: read and written in place
   int* state;            // [B, 2] carried (code, prev): read and written
   int* codes;            // [B, T]
-  int B, T, L, R, DC, S, Q, M, ring_rows, part_size;
+  int B, T, L, R, DC, S, Q, M, ring_rows, part_size, prime_len;
   unsigned long long t0;  // absolute index of this launch's first sample
   float inv_temperature;  // <= 0: argmax
   uint32_t seed_lo, seed_hi;
@@ -183,8 +191,12 @@ __global__ void __launch_bounds__(kThreads)
   __syncthreads();
 
   int code = a.state[2 * b], prev = a.state[2 * b + 1];
+  const int* forced = a.forced + (size_t)b * a.prime_len;
+  const unsigned long long P = (unsigned long long)a.prime_len;
   for (int t = 0; t < a.T; ++t) {
-    const uint32_t abs_t = (uint32_t)(a.t0 + (unsigned long long)t);
+    const unsigned long long abs_ll = a.t0 + (unsigned long long)t;
+    const uint32_t abs_t = (uint32_t)abs_ll;
+    if (abs_ll < P) code = forced[abs_ll];   // priming: the seed is the input
     // every layer's ring state for this step, the lc row and the causal tap
     // are known up front: one round of independent loads, off the chain
     for (int i = tid; i < L * R; i += blockDim.x) {
@@ -227,6 +239,17 @@ __global__ void __launch_bounds__(kThreads)
         if (l + 1 < L) x[r] = st[(l + 1) * R + r];
       }
       __syncthreads();
+    }
+
+    if (abs_ll + 1 < P) {
+      // priming step whose code is thrown away: the next input is forced
+      if (tid == 0) a.codes[(size_t)b * a.T + t] = forced[abs_ll + 1];
+      if (tid >= 32 && tid < 32 + L) {
+        const int l = tid - 32;
+        slot[l] = slot[l] + 1 == dil[l] ? 0 : slot[l] + 1;
+      }
+      __syncthreads();
+      continue;
     }
 
     // skip sum over every layer's gated output, then the post-net
@@ -304,24 +327,27 @@ __global__ void __launch_bounds__(kThreads)
 }  // namespace
 
 // Launches the sampler on `stream`, T samples from the carried state
-// (rings, state, t0); returns cudaGetLastError() (0 = ok).
+// (rings, state, t0), the inputs of absolute steps < prime_len forced to
+// forced[B, prime_len]; returns cudaGetLastError() (0 = ok).
 extern "C" int wavenet_sample(
     const float* wc, const float* wfg, const float* bfg, const float* wdense,
     const float* bdense, const float* wskip, const float* bskip,
     const float* post1, const float* b1, const float* post2, const float* b2,
-    const int* dilations, const float* lc, float* rings, int* state,
-    int* codes, int B, int T, int L, int R, int DC, int S, int Q, int M,
-    int ring_rows, unsigned long long t0, float inv_temperature,
-    unsigned long long seed, void* stream) {
+    const int* dilations, const float* lc, const int* forced, float* rings,
+    int* state, int* codes, int B, int T, int L, int R, int DC, int S, int Q,
+    int M, int ring_rows, int prime_len, unsigned long long t0,
+    float inv_temperature, unsigned long long seed, void* stream) {
   if (L > kThreads - 32) return (int)cudaErrorInvalidValue;
   const int K4 = (2 * R + M + 3) & ~3;
   int part = 4 * kThreads;
   if (S > part) part = S;
   if (Q > part) part = Q;
+  if (prime_len < 0 || (prime_len > 0 && forced == nullptr))
+    return (int)cudaErrorInvalidValue;
   Args a{wc,    wfg,   bfg,   wdense, bdense, wskip, bskip, post1,
-         b1,    post2, b2,    dilations, lc, rings, state, codes,
+         b1,    post2, b2,    dilations, lc, forced, rings, state, codes,
          B,     T,     L,     R,      DC,     S,     Q,     M,
-         ring_rows, part, t0, inv_temperature,
+         ring_rows, part, prime_len, t0, inv_temperature,
          (uint32_t)(seed & 0xffffffffull), (uint32_t)(seed >> 32)};
   const size_t smem =
       sizeof(float) * (size_t)(K4 + L * DC + S + L * R + 2 * L * DC + L * R +

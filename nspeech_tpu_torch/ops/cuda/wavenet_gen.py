@@ -1,9 +1,9 @@
 """WaveNet sampler: the CUDA kernel ``csrc/wavenet_gen.cu`` and its wrapper.
 
 Replaces the Pallas TPU kernel of ``nspeech_tpu/ops/pallas/wavenet_gen.py``
-(``PallasWaveNetGenerator``) in its one-shot forms (batch 1, and batch B
-with per-stream speakers) and its carried-state streaming form.
-:class:`CudaWaveNetGenerator` has the surface of
+(``PallasWaveNetGenerator``) in all its forms: one-shot (batch 1, and
+batch B with per-stream speakers), primed from seed codes, and carried
+state for streaming. :class:`CudaWaveNetGenerator` has the surface of
 ``PallasWaveNetGenerator.__call__``, ``chunk_carry0`` and
 ``generate_chunk``: on CUDA tensors it launches the kernel (or raises); on
 CPU tensors it runs the plain versions, ``WaveNet.generate`` and
@@ -18,6 +18,9 @@ the speaker's gc projection) is computed here in PyTorch. The carry is
 ``WaveNet.generate_carry0``'s: ``(t0, code [B], prev [B], rings [B, sum(d),
 R])``, the kernel's own ring layout, so a carry made on the card resumes
 in the plain version and the other way round.
+
+Each form counts its own launches: :data:`SAMPLER` (one-shot),
+:data:`PRIMED_SAMPLER` (primed) and :data:`CARRIED_SAMPLER` (streaming).
 """
 
 from __future__ import annotations
@@ -94,7 +97,7 @@ class WaveNetSampler:
         if self._fn is None:
             lib, _ = build(SOURCE)
             fn = lib.wavenet_sample
-            fn.argtypes = ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 9
+            fn.argtypes = ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 10
                            + [ctypes.c_ulonglong, ctypes.c_float,
                               ctypes.c_ulonglong, ctypes.c_void_p])
             fn.restype = ctypes.c_int
@@ -104,13 +107,16 @@ class WaveNetSampler:
     def __call__(self, packed: Dict[str, torch.Tensor],
                  lc: Optional[torch.Tensor], n_samples: int, batch: int,
                  temperature: float, seed: int, rings: torch.Tensor,
-                 state: torch.Tensor, t0: int) -> torch.Tensor:
+                 state: torch.Tensor, t0: int,
+                 forced: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Codes [batch, n_samples] int32 from the kernel, run from the
         carried state, which it updates in place: ``rings`` [batch,
         sum(d), R] float32, ``state`` [batch, 2] int32 (next input code,
         previous input code or -1), ``t0`` the absolute index of the first
         sample. ``lc`` is [batch, >= n_samples, M] float32 (None when
-        M == 0)."""
+        M == 0). ``forced`` [batch, P] int32 replaces the input code of
+        the absolute steps < P (priming); the codes of steps < P - 1 are
+        then not computed (the kernel stores the next forced code)."""
         dev = packed["wc"].device
         if dev.type != "cuda":
             raise ValueError(f"the CUDA sampler needs CUDA tensors, got {dev}")
@@ -144,6 +150,17 @@ class WaveNetSampler:
                     or not v.is_contiguous()):
                 raise ValueError(f"{name} must be a contiguous {dtype} "
                                  f"tensor of shape {shape} on {dev}")
+        forced_ptr, prime_len = None, 0
+        if forced is not None:
+            if (forced.dim() != 2 or forced.shape[0] != batch
+                    or forced.dtype != torch.int32 or forced.device != dev
+                    or not forced.is_contiguous()):
+                raise ValueError(f"seed codes must be a contiguous int32 "
+                                 f"tensor [{batch}, P] on {dev}")
+            prime_len = forced.shape[1]
+            if prime_len and not 0 <= int(forced.min()) <= int(forced.max()) < Q:
+                raise ValueError(f"seed codes must lie in [0, {Q})")
+            forced_ptr = forced.data_ptr() if prime_len else None
         lc_ptr = None
         if M:
             if lc is None or lc.shape[0] != batch or lc.shape[2] != M:
@@ -163,9 +180,10 @@ class WaveNetSampler:
                 "wc", "wfg")), bfg.data_ptr(), *(packed[k].data_ptr() for k in (
                     "wdense", "bdense", "wskip", "bskip", "post1", "b1",
                     "post2", "b2", "dilations")),
-                lc_ptr, rings.data_ptr(), state.data_ptr(), codes.data_ptr(),
-                batch, n_samples, L, R, DC, S, Q, M, ring_rows,
-                t0, inv_t, seed & 0xFFFFFFFFFFFFFFFF, stream)
+                lc_ptr, forced_ptr, rings.data_ptr(), state.data_ptr(),
+                codes.data_ptr(), batch, n_samples, L, R, DC, S, Q, M,
+                ring_rows, prime_len, t0, inv_t, seed & 0xFFFFFFFFFFFFFFFF,
+                stream)
         if rc != 0:
             raise RuntimeError(f"wavenet_sample launch failed: CUDA error {rc}")
         self.launches += 1
@@ -173,15 +191,15 @@ class WaveNetSampler:
 
 
 SAMPLER = WaveNetSampler()            # one-shot launches (K1, K2)
+PRIMED_SAMPLER = WaveNetSampler()     # primed launches (K3)
 CARRIED_SAMPLER = WaveNetSampler()    # carried-state launches (K4)
 
 
 class CudaWaveNetGenerator:
     """Reusable generator: params are packed once per speaker set.
 
-    Same call surface as the TPU package's ``PallasWaveNetGenerator``.
-    Refuses what that refuses (scalar input, filter_width != 2) and, for
-    now, priming (``seed_codes``)."""
+    Same call surface as the TPU package's ``PallasWaveNetGenerator``;
+    refuses what that refuses (scalar input, filter_width != 2)."""
 
     def __init__(self, net, params, gc_ids=None):
         if net.scalar_input or net.filter_width != 2:
@@ -212,22 +230,39 @@ class CudaWaveNetGenerator:
                  seed_codes=None, lc: Optional[torch.Tensor] = None,
                  temperature: float = 1.0,
                  deterministic: bool = False) -> torch.Tensor:
-        """Mu-law codes [batch, n_samples] int32; ``lc`` is per-sample
-        conditioning [batch, >= n_samples, M]. Temperature <= 0 (or
+        """Mu-law codes [batch, n_samples] int32. ``seed_codes`` [batch, P]
+        primes the generation: they are the inputs of the first P steps,
+        and the first code returned is the prediction after the last of
+        them (an empty seed primes nothing). ``lc`` is per-sample
+        conditioning [batch, >= P + n_samples, M]. Temperature <= 0 (or
         ``deterministic``) is argmax."""
         dev = self._check_lc(lc, batch)
         if seed_codes is not None:
-            raise NotImplementedError("priming is not ported to the sampler yet")
+            seed_codes = torch.as_tensor(seed_codes)
+            if seed_codes.dim() != 2 or seed_codes.shape[0] != batch:
+                raise ValueError(f"seed_codes must be [{batch}, P], got "
+                                 f"{tuple(seed_codes.shape)}")
+            if seed_codes.shape[1] == 0:
+                seed_codes = None
         if deterministic:
             temperature = 0.0
         if dev.type == "cpu":
             return self.net.generate(self.params, n_samples, seed=seed,
                                      batch=batch, gc_ids=self.gc_ids, lc=lc,
+                                     seed_codes=seed_codes,
                                      temperature=temperature)
         _, code, prev, rings = self.chunk_carry0(batch)
         state = torch.stack([code, prev], dim=1).contiguous()
-        return SAMPLER(self.packed, lc, n_samples, batch, temperature, seed,
-                       rings, state, 0)
+        if seed_codes is None:
+            return SAMPLER(self.packed, lc, n_samples, batch, temperature,
+                           seed, rings, state, 0)
+        # step t's code is the prediction for t + 1: the first kept code is
+        # step P - 1's, so the launch runs P - 1 + n_samples steps
+        P = seed_codes.shape[1]
+        codes = PRIMED_SAMPLER(self.packed, lc, P - 1 + n_samples, batch,
+                               temperature, seed, rings, state, 0,
+                               forced=seed_codes)
+        return codes[:, P - 1:]
 
     def chunk_carry0(self, batch: int = 1):
         """Initial carry for :meth:`generate_chunk` (the fresh state of a

@@ -15,11 +15,13 @@ import torch
 
 from nspeech_tpu_torch.config import Config, stft_params
 from nspeech_tpu_torch import dsp
+from nspeech_tpu_torch.models import create_model
 from nspeech_tpu_torch.ops.cuda.wavenet_gen import CudaWaveNetGenerator
 from nspeech_tpu_torch.ops.layers import tree_to
 from nspeech_tpu_torch.ops.upsample import upsample_on_device
 from nspeech_tpu_torch.serving.errors import ClientError
 from nspeech_tpu_torch.serving.synthesizer import Synthesizer
+from nspeech_tpu_torch.train import config_from_checkpoint, load_serving_params
 
 
 class WaveNetVocoder:
@@ -33,6 +35,28 @@ class WaveNetVocoder:
         self._gen = None
         self._gen_gc = None  # gc_ids the cached generator was packed with
         _, self._hop, _ = stft_params(cfg)
+
+    @classmethod
+    def from_checkpoint(cls, checkpoint_dir: str,
+                        model_name: Optional[str] = None,
+                        overrides: str = "", step: Optional[int] = None,
+                        device="cuda") -> "WaveNetVocoder":
+        """Build a vocoder from the checkpoint's run metadata (exact
+        training-time hparams incl. lc/gc channels and the mutated
+        gc_category_cardinality), with ``k=v,...`` overrides applied
+        last."""
+        cfg, name = config_from_checkpoint(checkpoint_dir, model_name,
+                                           overrides, default_model="wavenet")
+        return cls(cfg, device=device).load(checkpoint_dir, name, step=step)
+
+    def load(self, checkpoint_dir: str, model_name: str = "wavenet",
+             step: Optional[int] = None) -> "WaveNetVocoder":
+        """Restore the serving parameters of ``serving/<step>.npz`` (the
+        latest step by default)."""
+        net = create_model(model_name, self.cfg)
+        params, _ = load_serving_params(checkpoint_dir, net, step=step,
+                                        device=self.device)
+        return self.set_variables(net, params)
 
     def set_variables(self, net, params) -> "WaveNetVocoder":
         self.net = net

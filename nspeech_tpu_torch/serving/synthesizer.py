@@ -17,10 +17,13 @@ import torch
 from nspeech_tpu_torch.config import Config
 from nspeech_tpu_torch import dsp
 from nspeech_tpu_torch.data.feeder import round_up
+from nspeech_tpu_torch.models import create_model
 from nspeech_tpu_torch.models.tacotron2 import Tacotron2
 from nspeech_tpu_torch.ops.layers import tree_to
 from nspeech_tpu_torch.text import text_to_sequence
 from nspeech_tpu_torch.text.symbols import PAD_ID
+from nspeech_tpu_torch.train import (config_from_checkpoint, load_run_metadata,
+                                     load_serving_params)
 
 
 class Synthesizer:
@@ -36,6 +39,34 @@ class Synthesizer:
             # full float32: cuDNN convolutions default to TF32
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
+
+    @classmethod
+    def from_checkpoint(cls, checkpoint_dir: str,
+                        model_name: Optional[str] = None,
+                        overrides: str = "", step: Optional[int] = None,
+                        text_bucket: int = 32, device="cuda") -> "Synthesizer":
+        """Build a Synthesizer from a checkpoint's run metadata (exact
+        training-time hparams incl. the mutated num_speakers), with
+        ``k=v,...`` overrides applied last."""
+        cfg, name = config_from_checkpoint(checkpoint_dir, model_name, overrides)
+        return cls(cfg, text_bucket=text_bucket, device=device).load(
+            checkpoint_dir, name, step=step)
+
+    def load(self, checkpoint_dir: str, model_name: Optional[str] = None,
+             step: Optional[int] = None) -> "Synthesizer":
+        """Restore the serving parameters of ``serving/<step>.npz`` (the
+        latest step by default); ``model_name`` defaults to the run
+        metadata's model."""
+        if model_name is None:
+            meta = load_run_metadata(checkpoint_dir)
+            if meta is None or "model" not in meta:
+                raise ValueError("model_name not given and no run metadata "
+                                 f"at {checkpoint_dir!r}")
+            model_name = meta["model"]
+        model = create_model(model_name, self.cfg)
+        params, bn_state = load_serving_params(checkpoint_dir, model, step=step,
+                                               device=self.device)
+        return self.set_variables(params, bn_state, model=model)
 
     def set_variables(self, params, bn_state, model=None) -> "Synthesizer":
         """Use the port's (or bridged, see ``convert``) parameters; they

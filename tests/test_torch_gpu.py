@@ -1,5 +1,5 @@
-"""Card-only tests of the port (marker ``gpu``): the CUDA sampler (one-shot
-and carried-state launches) against its plain PyTorch version, the
+"""Card-only tests of the port (marker ``gpu``): the CUDA sampler (one-shot,
+primed and carried-state launches) against its plain PyTorch version, the
 wrapper's checks, and the one-shot and streaming serving paths on the
 card. They skip without a CUDA device.
 
@@ -104,6 +104,63 @@ def test_wrapper_checks_inputs(cuda):
         gen(10, batch=3, lc=torch.rand(3, 10, 5, device=cuda))  # 2 speakers, 3 streams
     with pytest.raises(ValueError):
         gen(10, batch=2, lc=torch.rand(2, 10, 5, device=cuda, dtype=torch.float64))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch,temperature", [(1, 0.0), (1, 1.0), (3, 0.0),
+                                               (3, 1.0)])
+def test_primed_kernel_matches_plain_teacher_forced(cuda, batch, temperature):
+    """K3: 40 forced codes then 120 free samples. The kept codes are held
+    against the plain version fed the seed and then the kernel's own codes
+    (steps P - 1 onwards of its ``include_prime`` logits)."""
+    net, params = tiny_vocoder(cuda)
+    P, n = 40, 120
+    gen_ = torch.Generator(cuda).manual_seed(3)
+    seeds = torch.randint(0, 64, (batch, P), device=cuda, generator=gen_,
+                          dtype=torch.int32)
+    lc = torch.rand(batch, P + n, 5, device=cuda, generator=gen_)
+    gc = [2, 0, 1][:batch]
+    before = wavenet_gen.PRIMED_SAMPLER.launches
+    one_shot = wavenet_gen.SAMPLER.launches
+    codes = CudaWaveNetGenerator(net, params, gc_ids=gc)(
+        n, seed=6, batch=batch, seed_codes=seeds, lc=lc, temperature=temperature)
+    assert wavenet_gen.PRIMED_SAMPLER.launches == before + 1
+    assert wavenet_gen.SAMPLER.launches == one_shot
+    assert codes.shape == (batch, n)
+    inputs = torch.cat([seeds, codes[:, :-1]], 1)
+    _, logits = net.generate(params, 0, seed=6, batch=batch, gc_ids=gc, lc=lc,
+                             seed_codes=inputs, temperature=temperature,
+                             return_logits=True, include_prime=True)
+    scores = logits[:, P - 1:]
+    if temperature > 0:
+        g = gumbel_noise(6, torch.arange(P - 1, P - 1 + n, device=cuda), batch, 64)
+        scores = scores * (1.0 / temperature) + g.permute(1, 0, 2)
+    chosen = scores.gather(-1, codes.long()[..., None])[..., 0]
+    assert (scores.max(-1).values - chosen).max().item() <= 1e-4
+
+
+@pytest.mark.gpu
+def test_primed_wrapper_checks_seed_codes(cuda):
+    net, params = tiny_vocoder(cuda)
+    gen = CudaWaveNetGenerator(net, params, gc_ids=[0, 1])
+    lc = torch.rand(2, 30, 5, device=cuda)
+    seeds = torch.zeros(2, 10, dtype=torch.int32, device=cuda)
+    before = wavenet_gen.PRIMED_SAMPLER.launches
+    with pytest.raises(ValueError):
+        gen(20, batch=2, lc=lc, seed_codes=seeds + 64)            # code >= Q
+    with pytest.raises(ValueError):
+        gen(20, batch=2, lc=lc, seed_codes=seeds - 1)             # code < 0
+    with pytest.raises(ValueError):
+        gen(20, batch=2, lc=lc, seed_codes=seeds[:1])             # batch
+    with pytest.raises(ValueError):
+        gen(20, batch=2, lc=lc, seed_codes=seeds.cpu())           # off the card
+    with pytest.raises(ValueError):
+        gen(20, batch=2, lc=lc, seed_codes=seeds.long())          # not int32
+    assert wavenet_gen.PRIMED_SAMPLER.launches == before
+    # an empty seed primes nothing: a one-shot launch
+    one_shot = wavenet_gen.SAMPLER.launches
+    gen(20, batch=2, lc=lc, seed_codes=seeds[:, :0])
+    assert wavenet_gen.SAMPLER.launches == one_shot + 1
 
 
 @pytest.mark.gpu

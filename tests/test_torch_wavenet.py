@@ -180,8 +180,11 @@ def test_generator_cpu_path_is_plain_generate():
         gen(20, batch=3)                        # conditioned model needs lc
     with pytest.raises(ValueError):
         gen(20, batch=2, lc=lc)                 # lc batch != batch
-    with pytest.raises(NotImplementedError):
-        gen(20, batch=3, lc=lc, seed_codes=torch.zeros(3, 4, dtype=torch.int64))
+    seeds = torch.from_numpy(np.random.default_rng(3).integers(0, 64, (3, 4)))
+    np.testing.assert_array_equal(
+        gen(20, seed=5, batch=3, lc=lc, seed_codes=seeds).numpy(),
+        tnet.generate(tparams, 20, seed=5, batch=3, gc_ids=[0, 1, 2], lc=lc,
+                      seed_codes=seeds).numpy())
 
 
 @pytest.mark.parametrize("extra", ["filter_width=3", "scalar_input=True"])
