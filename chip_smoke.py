@@ -3,16 +3,21 @@
     python3 chip_smoke.py
 
 1. Prints the card's name and power limit, builds the WaveNet sampler
-   kernel from ``nspeech_tpu_torch/csrc`` and prints its build time and
-   the ptxas register / shared-memory report.
+   kernel from ``nspeech_tpu_torch/csrc`` and prints its build time, the
+   ptxas register / shared-memory report and how many of its 8-CTA
+   clusters (one per stream) run at once at full width.
 2. Holds the kernel against its plain PyTorch version (``WaveNet.generate``)
    at full vocoder width (wavenet hparams + lc_channels=80, gc_channels=16,
    gc_category_cardinality=4, seeded weights and mel): B=1 without
    speakers and B=4 with per-stream speakers, each at temperature 0 and 1,
-   over N_CHECK samples. Codes drift apart after one rounding flip, so the
-   check is teacher-forced: the kernel's codes are fed to the plain
-   generator as its inputs, and at every step the kernel's code must score
-   within SCORE_TOL of the plain version's best score (same Philox noise).
+   over N_CHECK samples; the ``simple_wavenet`` preset (no conditioning,
+   the kernel's M = 0) at B=1, temperature 0 and 1, over N_SIMPLE samples;
+   and a batch of at least 17 streams, one more than the card runs at
+   once, so that the clusters run in waves (N_WAVES samples, T=1). Codes
+   drift apart after one rounding flip, so the check is teacher-forced:
+   the kernel's codes are fed to the plain generator as its inputs, and
+   at every step the kernel's code must score within SCORE_TOL of the
+   plain version's best score (same Philox noise).
 3. Holds the kernel's carried-state launches (the streaming form) against
    one launch and against the plain version: launches of N_CHECK samples
    split as CARRY_SPLIT must give the codes of one launch, in the same 4
@@ -36,7 +41,10 @@
 6. Serves 3 ``TextToSpeech.synthesize`` requests and one
    ``synthesize_batch`` of 4 with speaker ids at full Tacotron-2 and
    WaveNet width (seeded weights, decoder cut to MAX_ITERS steps), counts
-   the sampler's launches on that path and checks every waveform.
+   the sampler's launches on that path and checks every waveform. Before
+   them, a batch with a gc id past the vocoder's table must raise
+   ``ClientError`` without a launch; the requests after it show that the
+   process's CUDA context is still usable.
 7. Streams at the same widths through ``StreamingTTS`` (chunk_frames=40,
    growth=4, T=1): one ``stream`` and one ``stream_batch`` of 2 with
    speakers. Prints time to first audio, wall time, chunk sizes, the time
@@ -45,8 +53,9 @@
    stream equals ``WaveNetVocoder.vocode_batch`` of the stream's own mel
    at the same seed and that the mel is within MEL_TOL of
    ``Tacotron2.forward``'s.
-8. Prints one ``{"kernels": [...]}`` line (one-shot, carried and primed
-   records) and, last, the
+8. Prints each form's time per sample (per step for the primed form)
+   beside its bound, one ``{"kernels": [...]}`` line (one-shot, carried
+   and primed records) and, last, the
    ``{"ok": true, "device": ...}`` line. Exits non-zero without a card or
    when any check fails.
 """
@@ -63,6 +72,8 @@ import numpy as np
 import torch
 
 N_CHECK = 2000          # samples per kernel-vs-plain case
+N_SIMPLE = 600          # samples per simple_wavenet (M = 0) case
+N_WAVES = 200           # samples of the batch that runs in waves
 SCORE_TOL = 1e-3        # f32 logits summed in another order, same noise
 CARRY_SPLIT = (700, 1, 1299)   # carried launches that make N_CHECK samples
 RESUME_T0 = 30000       # where the resumed carried launch starts
@@ -141,22 +152,23 @@ def sampler_flops(net, batch: int, n: int) -> float:
     return 2.0 * macs * batch * n
 
 
-def check_case(net, params, batch, gc_ids, temperature, seed):
-    """Kernel vs plain, teacher-forced. Returns a result dict."""
+def check_case(net, params, batch, gc_ids, temperature, seed, n=N_CHECK,
+               label="wavenet"):
+    """Kernel vs plain, teacher-forced, over n samples. Returns a result
+    dict."""
     from nspeech_tpu_torch.ops.cuda.wavenet_gen import CudaWaveNetGenerator
     from nspeech_tpu_torch.ops.philox import gumbel_noise
 
     Q = net.quantization_channels
-    lc = seeded_lc(seed, batch, N_CHECK, 250)
+    lc = seeded_lc(seed, batch, n, 250) if net.lc_channels else None
     gen = CudaWaveNetGenerator(net, params, gc_ids=gc_ids)
-    gen(N_CHECK, seed=seed, batch=batch, lc=lc, temperature=temperature)
+    gen(n, seed=seed, batch=batch, lc=lc, temperature=temperature)
     torch.cuda.synchronize()
     codes = None
 
     def run():
         nonlocal codes
-        codes = gen(N_CHECK, seed=seed, batch=batch, lc=lc,
-                    temperature=temperature)
+        codes = gen(n, seed=seed, batch=batch, lc=lc, temperature=temperature)
 
     ms = cuda_ms(run)
     inputs = torch.cat([torch.full((batch, 1), Q // 2, device="cuda",
@@ -165,7 +177,7 @@ def check_case(net, params, batch, gc_ids, temperature, seed):
                              lc=lc, seed_codes=inputs, temperature=temperature,
                              return_logits=True, include_prime=True)
     if temperature > 0:
-        g = gumbel_noise(seed, torch.arange(N_CHECK, device="cuda"), batch, Q)
+        g = gumbel_noise(seed, torch.arange(n, device="cuda"), batch, Q)
         scores = logits * (1.0 / temperature) + g.permute(1, 0, 2)
     else:
         scores = logits
@@ -176,15 +188,19 @@ def check_case(net, params, batch, gc_ids, temperature, seed):
     first = None if differ.numel() == 0 else int(differ[:, 1].min())
     ok = bool(np.isfinite(gap) and gap <= SCORE_TOL
               and int(codes.min()) >= 0 and int(codes.max()) < Q)
-    print(f"kernel vs plain B={batch} gc={gc_ids} T={temperature}: "
+    gc_note = gc_ids if gc_ids is None or len(gc_ids) <= 4 else f"{len(gc_ids)} ids"
+    print(f"kernel vs plain, {label}, B={batch} gc={gc_note} T={temperature}: "
           f"max score gap {gap:.3g} (tol {SCORE_TOL}), first differing "
-          f"argmax at step {first}, kernel {ms:.3f} ms for {N_CHECK} samples "
-          f"-> {'ok' if ok else 'FAIL'}")
+          f"argmax at step {first}, kernel {ms:.3f} ms for {n} samples "
+          f"({ms * 1e3 / n:.1f} us per sample) -> {'ok' if ok else 'FAIL'}")
     return {"ok": ok, "gap": gap, "ms": ms, "gen": gen, "lc": lc}
 
 
 def kernel_phase():
-    from nspeech_tpu_torch.ops.cuda import build
+    from nspeech_tpu_torch.config import load_config
+    from nspeech_tpu_torch.models.wavenet import WaveNet
+    from nspeech_tpu_torch.ops.cuda import build, wavenet_gen
+    from nspeech_tpu_torch.ops.layers import tree_to
 
     t0 = time.perf_counter()
     _, report = build.build("wavenet_gen.cu")
@@ -198,6 +214,17 @@ def kernel_phase():
         for temperature in (0.0, 1.0):
             results.append(check_case(net, params, batch, gc_ids,
                                       temperature, seed=11 + batch))
+    clusters = wavenet_gen.SAMPLER.max_active_clusters(results[0]["gen"].packed)
+    print(f"active 8-CTA clusters at full width: {clusters} (streams that run "
+          f"at once; a larger batch runs in waves)")
+    snet = WaveNet(load_config("simple_wavenet"))
+    sparams = tree_to(snet.init(7), "cuda")
+    for temperature in (0.0, 1.0):
+        results.append(check_case(snet, sparams, 1, None, temperature, seed=51,
+                                  n=N_SIMPLE, label="simple_wavenet (M = 0)"))
+    waves = max(17, clusters + 1)
+    results.append(check_case(net, params, waves, None, 1.0, seed=61,
+                              n=N_WAVES, label=f"{waves} streams in waves"))
     # the main path's single-request shape: B=1, T=1 (results[1])
     main = results[1]
     torch.cuda.synchronize()
@@ -225,6 +252,12 @@ def kernel_phase():
     }
     print(f"sampler {record['ms']:.3f} ms, plain {plain_ms:.1f} ms, bound "
           f"{record['bound_ms']:.4f} ms at B=1 x {N_CHECK} samples")
+    b4_bound, _ = sampler_bound(results[3]["gen"].packed, 4, N_CHECK,
+                                net.lc_channels, sampler_flops(net, 4, N_CHECK))
+    record["per_sample"] = [
+        ("K1, B=1, T=1", main["ms"] / N_CHECK, bound_ms / N_CHECK),
+        ("K2, B=4 with gc, T=1", results[3]["ms"] / N_CHECK, b4_bound / N_CHECK)]
+    record["active_clusters"] = clusters
     return record
 
 
@@ -332,6 +365,8 @@ def carried_phase():
     }
     print(f"carried sampler {ms:.3f} ms, plain {plain_ms:.1f} ms, bound "
           f"{bound_ms:.4f} ms at B=1 x {n_timed} samples from t0={RESUME_T0}")
+    record["per_sample"] = [("K4, B=1, T=1, from t0=30000", ms / n_timed,
+                             bound_ms / n_timed)]
     return record
 
 
@@ -429,6 +464,9 @@ def primed_phase():
     print(f"primed sampler {record['ms']:.3f} ms, plain {record['plain_ms']:.1f} "
           f"ms (teacher-forced), bound {bound_ms:.4f} ms at B=1 x "
           f"{PRIME_LEN - 1 + N_PRIMED} steps")
+    steps = PRIME_LEN - 1 + N_PRIMED
+    record["per_sample"] = [("K3, B=1, T=1, per step (P=600, n=300)",
+                             main["ms"] / steps, bound_ms / steps)]
     return record
 
 
@@ -539,8 +577,8 @@ def e2e_phase():
     from nspeech_tpu_torch.config import load_config
     from nspeech_tpu_torch.models.tacotron2 import Tacotron2
     from nspeech_tpu_torch.ops.cuda import wavenet_gen
-    from nspeech_tpu_torch.serving import (Synthesizer, TextToSpeech,
-                                           WaveNetVocoder)
+    from nspeech_tpu_torch.serving import (ClientError, Synthesizer,
+                                           TextToSpeech, WaveNetVocoder)
 
     cfg = load_config("taco2").parse(f"max_iters={MAX_ITERS}")
     print(f"end to end: taco2 full width, max_iters={MAX_ITERS} "
@@ -568,10 +606,23 @@ def e2e_phase():
              "Four streams share one batched sampler call."]
     tts.synthesize(texts[0])                   # warm-up: cuDNN, cuFFT plans
     torch.cuda.synchronize()
+    ok = True
+    # an id past the vocoder's gc table: refused before any launch, and the
+    # requests below run on the same CUDA context
+    bad = vcfg.gc_category_cardinality
+    before = wavenet_gen.SAMPLER.launches
+    try:
+        tts.synthesize_batch(texts[:2], speaker_ids=[0, bad])
+        print(f"FAIL: gc id {bad} was served")
+        ok = False
+    except ClientError as e:
+        good = wavenet_gen.SAMPLER.launches == before
+        ok &= good
+        print(f"batch with gc id {bad}: ClientError ({e}), launches during it "
+              f"{wavenet_gen.SAMPLER.launches - before} -> {'ok' if good else 'FAIL'}")
     vocoded.clear()
     wavenet_gen.SAMPLER.launches = 0
     wavenet_gen.CARRIED_SAMPLER.launches = 0
-    ok = True
     for i, text in enumerate(texts[:3]):
         t0 = time.perf_counter()
         wav, mel, _ = tts.synthesize(text, temperature=1.0)
@@ -707,6 +758,10 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         cli_ok, primed["launches"] = cli_phase(tmp)
     print(f"smoke took {time.perf_counter() - start:.1f} s after the card line")
+    for rec in (record, carried, primed):
+        for form, ms, bound in rec.pop("per_sample"):
+            print(f"{form}: {ms * 1e3:.2f} us per sample, bound {bound * 1e3:.4f} "
+                  f"us ({ms / bound:.0f} x the bound)")
     print(json.dumps({"kernels": [record, carried, primed]}))
     if not (record["checked"] and carried["checked"] and primed["checked"]
             and e2e_ok and stream_ok and cli_ok):

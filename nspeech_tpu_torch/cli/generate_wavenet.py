@@ -30,6 +30,7 @@ from nspeech_tpu_torch.dsp.wavio import (encode_pcm16, load_wav, save_wav,
                                          wav_stream_header)
 from nspeech_tpu_torch.models import create_model
 from nspeech_tpu_torch.ops.cuda.wavenet_gen import CudaWaveNetGenerator
+from nspeech_tpu_torch.serving.errors import ClientError, check_ids
 from nspeech_tpu_torch.train import config_from_checkpoint, load_serving_params
 
 
@@ -127,6 +128,13 @@ def main(argv=None) -> None:
         cfg.gc_category_cardinality = args.gc_cardinality
     if args.gc_id is not None and cfg.gc_channels <= 0:
         raise SystemExit("--gc-id given but gc_channels is 0 in hparams")
+    if args.gc_id is not None:
+        # checked before any launch: on the card an id past the gc table is
+        # a device-side assert (the JAX CLI generates from NaN rows)
+        try:
+            check_ids([args.gc_id], cfg.gc_category_cardinality, "--gc-id")
+        except ClientError as e:
+            raise SystemExit(str(e)) from None
 
     net = create_model(args.model, cfg)
     params, _ = load_serving_params(args.checkpoint, net,

@@ -16,6 +16,7 @@ import argparse
 
 from nspeech_tpu_torch.dsp.wavio import save_wav
 from nspeech_tpu_torch.serving import Synthesizer, TextToSpeech, WaveNetVocoder
+from nspeech_tpu_torch.serving.errors import ClientError, check_ids
 
 
 def main(argv=None) -> None:
@@ -66,6 +67,15 @@ def main(argv=None) -> None:
             args.vocoder_checkpoint, args.vocoder_model,
             args.vocoder_hparams, device=args.device)
     tts = TextToSpeech(synth, vocoder)
+    # --speaker indexes the speaker table and, with a vocoder, its gc
+    # table: checked before any launch (on the card an id past a table is
+    # a device-side assert; the JAX CLI synthesizes from NaN rows)
+    try:
+        synth.check_speakers([args.speaker])
+        if vocoder is not None and vocoder.net.gc_channels and args.speaker >= 0:
+            check_ids([args.speaker], vocoder.net.gc_cardinality, "gc id")
+    except ClientError as e:
+        raise SystemExit(f"--speaker: {e}") from None
     wav, _mel, _lin = tts.synthesize(args.text, args.speaker,
                                      temperature=args.temperature)
     save_wav(wav, args.out, cfg.sample_rate)

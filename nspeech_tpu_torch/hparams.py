@@ -1,6 +1,7 @@
 """Hyperparameter tables, as Python dicts.
 
-The port's copy of ``nspeech_tpu/hparams/{audio,train,taco2,wavenet}.yaml``
+The port's copy of
+``nspeech_tpu/hparams/{audio,train,taco2,wavenet,simple_wavenet}.yaml``
 (the configuration contract: same keys, same values). They are dicts and
 not YAML because the port must run where no YAML parser is installed; a
 test holds them equal to the JAX package's parsed files.
@@ -87,4 +88,24 @@ WAVENET = {
     "l2_regularization_strength": 0,
 }
 
-MODELS = {"taco2": TACO2, "wavenet": WAVENET}
+# The unconditioned vocoder preset: a preset of the one WaveNet class, as
+# in the JAX package (lc_channels 0, so the sampler runs with M = 0).
+SIMPLE_WAVENET = {
+    "outputs_per_step": 5,
+    "filter_width": 2,
+    "dilations_depth": 5,
+    "dilations_length": 10,
+    "residual_channels": 32,
+    "dilation_channels": 32,
+    "quantization_channels": 256,
+    "skip_channels": 512,
+    "use_biases": False,
+    "scalar_input": False,
+    "initial_filter_width": 32,
+    "gc_channels": 0,
+    "gc_category_cardinality": 0,
+    "lc_channels": 0,
+    "l2_regularization_strength": 0,
+}
+
+MODELS = {"taco2": TACO2, "wavenet": WAVENET, "simple_wavenet": SIMPLE_WAVENET}

@@ -1,9 +1,12 @@
-"""Models: Tacotron-2 (inference) and the WaveNet vocoder."""
+"""Models: Tacotron-2 (inference) and the WaveNet vocoder.
+
+``simple_wavenet`` is a preset of the one WaveNet class, as in the JAX
+package's registry."""
 
 from nspeech_tpu_torch.models.tacotron2 import Tacotron2  # noqa: F401
 from nspeech_tpu_torch.models.wavenet import WaveNet  # noqa: F401
 
-MODELS = {"taco2": Tacotron2, "wavenet": WaveNet}
+MODELS = {"taco2": Tacotron2, "wavenet": WaveNet, "simple_wavenet": WaveNet}
 
 
 def check_ported(name: str) -> None:

@@ -174,11 +174,16 @@ class WaveNet:
         return logits
 
     def _embed_gc(self, params: Params, gc_ids) -> Optional[torch.Tensor]:
+        """Rows of the gc table; ids outside it raise ValueError on the
+        host (on the card the index would be a device-side assert; JAX's
+        ``jnp.take`` returns NaN rows)."""
         if gc_ids is None or not self.gc_channels:
             return None
         table = params["gc_embedding"]
-        return table[torch.as_tensor(gc_ids, dtype=torch.int64,
-                                     device=table.device)]
+        ids = torch.as_tensor(gc_ids, dtype=torch.int64)
+        if ids.numel() and not 0 <= int(ids.min()) <= int(ids.max()) < table.shape[0]:
+            raise ValueError(f"gc ids {ids.tolist()} outside [0, {table.shape[0]})")
+        return table[ids.to(table.device)]
 
     def _network_embedded(self, params: Params, codes: torch.Tensor,
                           gc, lc) -> torch.Tensor:

@@ -19,7 +19,7 @@ from nspeech_tpu_torch.models import create_model
 from nspeech_tpu_torch.ops.cuda.wavenet_gen import CudaWaveNetGenerator
 from nspeech_tpu_torch.ops.layers import tree_to
 from nspeech_tpu_torch.ops.upsample import upsample_on_device
-from nspeech_tpu_torch.serving.errors import ClientError
+from nspeech_tpu_torch.serving.errors import ClientError, check_ids
 from nspeech_tpu_torch.serving.synthesizer import Synthesizer
 from nspeech_tpu_torch.train import config_from_checkpoint, load_serving_params
 
@@ -77,19 +77,26 @@ class WaveNetVocoder:
     def vocode_batch(self, mels: np.ndarray, speaker_ids=None,
                      temperature: float = 1.0, seed: int = 0) -> np.ndarray:
         """mels: [N, T_frames, M] (equal lengths) -> [N, T*hop] waveforms,
-        all N streams in one sampler call."""
+        all N streams in one sampler call.
+
+        With speakers (``gc_channels`` > 0), an id outside [0,
+        ``gc_category_cardinality``) raises :class:`ClientError` before
+        anything is launched (JAX serves NaN rows there; on the card the
+        index would be a device-side assert that leaves the CUDA context
+        unusable)."""
         if self.net.lc_channels <= 0:
             raise ValueError(
                 "Vocoder checkpoint was trained without local conditioning "
                 "(lc_channels=0); it cannot follow a mel spectrogram.")
+        gc_ids = None
+        if speaker_ids is not None and self.net.gc_channels:
+            gc_ids = [int(s) for s in speaker_ids]
+            check_ids(gc_ids, self.net.gc_cardinality, "gc id")
         mels = np.asarray(mels, np.float32)
         n = mels.shape[0]
         n_samples = mels.shape[1] * self._hop
         lc = upsample_on_device(torch.from_numpy(mels).to(self.device),
                                 self._hop, n_samples)      # [N, T*hop, M]
-        gc_ids = None
-        if speaker_ids is not None and self.net.gc_channels:
-            gc_ids = [int(s) for s in speaker_ids]
         # the generator folds the speakers into its packed biases
         gc_key = None if gc_ids is None else tuple(gc_ids)
         if self._gen is None or self._gen_gc != gc_key:

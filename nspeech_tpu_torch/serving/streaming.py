@@ -39,7 +39,7 @@ from nspeech_tpu_torch.data.feeder import round_up
 from nspeech_tpu_torch.models import decoder as D
 from nspeech_tpu_torch.ops.cuda.wavenet_gen import CudaWaveNetGenerator
 from nspeech_tpu_torch.ops.upsample import upsample_abs
-from nspeech_tpu_torch.serving.errors import ClientError
+from nspeech_tpu_torch.serving.errors import ClientError, check_ids
 from nspeech_tpu_torch.text import text_to_sequence
 from nspeech_tpu_torch.text.symbols import PAD_ID
 
@@ -211,7 +211,10 @@ class StreamingTTS:
         this round (it ended; streams stop at their own stop frame while
         the batch runs on for the longest). The decoder, the postnet and
         the vocoder advance in lockstep for all N streams: one sampler
-        launch per chunk, one thread block per stream on the card.
+        launch per chunk, one 8-CTA cluster per stream on the card.
+        Speaker ids the Tacotron-2 speaker table or the vocoder's gc table
+        lacks raise :class:`ClientError` before any launch (a deliberate
+        deviation from JAX, which serves NaN rows).
 
         Per-stream trimming follows the decoder's stop frames; the
         conditioning's frame clip is the batch maximum, as in the one-shot
@@ -228,6 +231,14 @@ class StreamingTTS:
         n_real = len(texts)
         if speaker_ids is None:
             speaker_ids = [-1] * n_real
+        # ids the speaker or gc tables lack raise ClientError before any
+        # launch (JAX serves NaN rows; on the card the index would be a
+        # device-side assert that leaves the CUDA context unusable)
+        given = [s for s in speaker_ids if s is not None and s >= 0]
+        if cfg.num_speakers > 1:
+            check_ids(given, cfg.num_speakers, "speaker id")
+        if self.net.gc_channels:
+            check_ids(given, self.net.gc_cardinality, "gc id")
         # Pad the batch to a power of two (synthesize_batch's rule).
         # Padding rows get length 0: the decoder finishes them at step 0,
         # so they never extend the batch's decode, and delivery drops them.

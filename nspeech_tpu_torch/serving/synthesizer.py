@@ -19,7 +19,9 @@ from nspeech_tpu_torch import dsp
 from nspeech_tpu_torch.data.feeder import round_up
 from nspeech_tpu_torch.models import create_model
 from nspeech_tpu_torch.models.tacotron2 import Tacotron2
+from nspeech_tpu_torch.ops import threefry
 from nspeech_tpu_torch.ops.layers import tree_to
+from nspeech_tpu_torch.serving.errors import check_ids
 from nspeech_tpu_torch.text import text_to_sequence
 from nspeech_tpu_torch.text.symbols import PAD_ID
 from nspeech_tpu_torch.train import (config_from_checkpoint, load_run_metadata,
@@ -80,10 +82,21 @@ class Synthesizer:
         return self
 
     def initial_phase(self, shape) -> torch.Tensor:
-        """Griffin-Lim's initial phase for a batch: uniform [0, 1) from a
-        generator seeded 0 on every call, so a request is reproducible."""
-        gen = torch.Generator(device=self.device).manual_seed(0)
-        return torch.rand(shape, generator=gen, device=self.device)
+        """Griffin-Lim's initial phase for a batch [n, ...]: row i is
+        ``uniform(split(PRNGKey(0), n)[i], shape[1:])`` of JAX's default
+        PRNG, as the JAX synthesizer draws it on its CPU route (built in
+        numpy by ``ops/threefry.py``, moved to the device once per call),
+        so the waveform and its endpoint are the JAX package's."""
+        keys = threefry.split(threefry.prng_key(0), shape[0])
+        phase = np.stack([threefry.uniform(k, shape[1:]) for k in keys])
+        return torch.from_numpy(phase).to(self.device)
+
+    def check_speakers(self, speaker_ids) -> None:
+        """Raise :class:`ClientError` for a speaker id the model's speaker
+        table does not have (ids below 0 and None mean the default)."""
+        if self.cfg.num_speakers > 1:
+            check_ids([s for s in speaker_ids if s is not None and s >= 0],
+                      self.cfg.num_speakers, "speaker id")
 
     def synthesize(self, text: str, speaker_id: int = -1,
                    want_features=True) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
@@ -99,11 +112,18 @@ class Synthesizer:
         """One padded forward and per-row Griffin-Lim for N texts. Returns
         (list of waveforms, mels [N, T, M], linears [N, T, F]); the feature
         arrays are None with ``want_features=False``, the linear alone with
-        ``want_features="mel"``."""
+        ``want_features="mel"``.
+
+        A multi-speaker model raises :class:`ClientError` for a speaker id
+        at or above ``num_speakers``, before anything runs (-1 is the
+        default speaker). This deviates from JAX, whose ``jnp.take`` serves
+        NaN rows: on the card an index out of range is a device-side assert
+        that leaves the process's CUDA context unusable."""
         if self._params is None:
             raise RuntimeError("Synthesizer.set_variables() first")
         if speaker_ids is None:
             speaker_ids = [-1] * len(texts)
+        self.check_speakers(speaker_ids)
         seqs = [text_to_sequence(t, self._cleaners) for t in texts]
         padded_len = round_up(max(len(s) for s in seqs), self._text_bucket)
         n = max(1, 1 << (len(seqs) - 1).bit_length())

@@ -9,7 +9,16 @@ decodes with the same ``powf`` table, so the wav files must hold the same
 int16 samples (the streamed files the same bytes).
 
 ``cli.synthesize`` against the port's own ``TextToSpeech`` built from the
-same weights with ``set_variables``: the same samples."""
+same weights with ``set_variables``: the same samples; and against the
+JAX package's ``synthesize.py --platform cpu`` from one exported pair of
+checkpoints (Tacotron-2, and a mel-conditioned vocoder at temperature 0):
+the same endpoint, so the same length, and int16 samples within 4 of
+32767. The Griffin-Lim phase is JAX's on both sides; its FFTs differ in
+rounding, which the pipeline parity test bounds by 1e-4 of the peak (3.3
+of full scale) plus one for the int16 rounding.
+
+The ``simple_wavenet`` preset (no conditioning, M = 0) through both
+generation CLIs, held to the JAX CLI's int16 samples."""
 
 import importlib.util
 import os
@@ -22,6 +31,7 @@ import torch
 from scipy.io import wavfile
 
 import generate_wavenet as jax_cli
+import synthesize as jax_synth
 from nspeech_tpu.config import load_config as j_load
 from nspeech_tpu.models import create_model as j_create
 from nspeech_tpu.train import CheckpointManager, create_state, make_optimizer
@@ -44,7 +54,36 @@ TACO = ("max_iters=4,encoder_conv_layers=1,postnet_conv_layers=1,"
         "postnet_conv_channels=16,expand_conv_channels=16,"
         "decoder_lstm_units=16,encoder_lstm_units=8,expand_lstm_units=8,"
         "embedding_dim=16,griffin_lim_iters=2")
+TINY_SIMPLE = ("dilations_length=3,dilations_depth=2,residual_channels=8,"
+               "dilation_channels=8,skip_channels=16,quantization_channels=64")
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def export_jax_checkpoint(d, name, cfg, step=5, **meta):
+    """Orbax checkpoint of a freshly initialised JAX model in ``d/ckpt``,
+    exported to the port's archive in ``d/port``."""
+    model = j_create(name, cfg)
+    tx, _ = make_optimizer(cfg, name)
+    state = create_state(model, tx, jax.random.PRNGKey(0))
+    mgr = CheckpointManager(str(d / "ckpt"))
+    mgr.save(step, state)
+    mgr.wait()
+    mgr.close()
+    j_save_meta(str(d / "ckpt"), name, cfg, **meta)
+    spec = importlib.util.spec_from_file_location(
+        "export_torch_checkpoint",
+        os.path.join(ROOT, "scripts", "export_torch_checkpoint.py"))
+    exporter = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(exporter)
+    exporter.export(str(d / "ckpt"), str(d / "port"))
+
+
+def write_seed_wav(d, sr):
+    rng = np.random.default_rng(0)
+    t = np.arange(sr // 4) / sr
+    seed = 0.5 * np.sin(2 * np.pi * 300 * t) + 0.05 * rng.standard_normal(t.size)
+    wavfile.write(str(d / "seed.wav"), sr, (seed * 32767).astype(np.int16))
+    return rng
 
 
 @pytest.fixture(scope="module")
@@ -52,25 +91,8 @@ def wavenet_ckpt(tmp_path_factory):
     """(Orbax checkpoint dir, exported port checkpoint dir, seed wav, mel)."""
     d = tmp_path_factory.mktemp("gen")
     cfg = j_load("wavenet").parse(TINY)
-    model = j_create("wavenet", cfg)
-    tx, _ = make_optimizer(cfg, "wavenet")
-    state = create_state(model, tx, jax.random.PRNGKey(0))
-    mgr = CheckpointManager(str(d / "ckpt"))
-    mgr.save(5, state)
-    mgr.wait()
-    mgr.close()
-    j_save_meta(str(d / "ckpt"), "wavenet", cfg)
-    spec = importlib.util.spec_from_file_location(
-        "export_torch_checkpoint",
-        os.path.join(ROOT, "scripts", "export_torch_checkpoint.py"))
-    exporter = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(exporter)
-    exporter.export(str(d / "ckpt"), str(d / "port"))
-    rng = np.random.default_rng(0)
-    sr = cfg.sample_rate
-    t = np.arange(sr // 4) / sr
-    seed = 0.5 * np.sin(2 * np.pi * 300 * t) + 0.05 * rng.standard_normal(t.size)
-    wavfile.write(str(d / "seed.wav"), sr, (seed * 32767).astype(np.int16))
+    export_jax_checkpoint(d, "wavenet", cfg)
+    rng = write_seed_wav(d, cfg.sample_rate)
     np.save(str(d / "mel.npy"), rng.random((12, 5)).astype(np.float32))
     return d
 
@@ -165,3 +187,86 @@ def test_synthesize_cli_refusals(tts_ckpts, flag, item):
     with pytest.raises(SystemExit, match=item):
         port_synth.main(["--checkpoint", str(d / "taco"), "--text", "hi",
                          "--device", "cpu", flag])
+
+
+@pytest.fixture(scope="module")
+def simple_ckpt(tmp_path_factory):
+    d = tmp_path_factory.mktemp("simple")
+    cfg = j_load("simple_wavenet").parse(TINY_SIMPLE)
+    export_jax_checkpoint(d, "simple_wavenet", cfg)
+    write_seed_wav(d, cfg.sample_rate)
+    return d
+
+
+@pytest.mark.parametrize("route,flags", [
+    ("primed", ["--wav_seed", "seed.wav", "--samples", "200"]),
+    ("streamed", ["--samples", "200", "--stream-chunk", "64"])])
+def test_simple_wavenet_matches_jax_cli(simple_ckpt, monkeypatch, capsys,
+                                        route, flags):
+    """The ``simple_wavenet`` preset (lc_channels 0: the sampler's M = 0)
+    is served by the port's generation CLI from an exported JAX run, as
+    the JAX CLI serves it: the same int16 samples at temperature 0."""
+    d = simple_ckpt
+    flags = [str(d / f) if f.endswith(".wav") else f for f in flags]
+    j, t = run_both(d, monkeypatch, route, ["--temperature", "0"] + flags)
+    out = capsys.readouterr().out
+    assert out.count("Receptive field: 16") == 2
+    (_, a), (_, b) = wavfile.read(str(j)), wavfile.read(str(t))
+    assert a.dtype == b.dtype == np.int16 and a.shape == b.shape == (200,)
+    assert len(np.unique(b)) > 1
+    np.testing.assert_array_equal(b, a)
+
+
+@pytest.fixture(scope="module")
+def jax_tts_ckpts(tmp_path_factory):
+    """Exported JAX Tacotron-2 and mel-conditioned vocoder runs."""
+    d = tmp_path_factory.mktemp("jtts")
+    (d / "taco").mkdir()
+    (d / "voc").mkdir()
+    export_jax_checkpoint(d / "taco", "taco2", j_load("taco2").parse(TACO))
+    export_jax_checkpoint(d / "voc", "wavenet", j_load("wavenet").parse(
+        TINY.replace("lc_channels=5", "lc_channels=80")), step=9)
+    return d
+
+
+@pytest.mark.parametrize("vocoder", [False, True])
+def test_synthesize_cli_matches_jax_cli(jax_tts_ckpts, tmp_path, monkeypatch,
+                                        vocoder):
+    """The port's synthesize CLI writes what ``synthesize.py --platform
+    cpu`` writes from the same exported runs: Griffin-Lim from JAX's
+    initial phase, so the same endpoint and length (with a vocoder: the
+    same trimmed mel, identical codes at temperature 0)."""
+    d = jax_tts_ckpts
+    common = ["--text", "Hello there, two CLIs.", "--temperature", "0"]
+    jflags = ["--checkpoint", str(d / "taco" / "ckpt")] + common
+    tflags = ["--checkpoint", str(d / "taco" / "port")] + common
+    if vocoder:
+        jflags += ["--vocoder-checkpoint", str(d / "voc" / "ckpt")]
+        tflags += ["--vocoder-checkpoint", str(d / "voc" / "port")]
+    monkeypatch.setenv("NSPEECH_NO_COMPILE_CACHE", "1")
+    monkeypatch.setattr(sys, "argv", ["synthesize.py", "--platform", "cpu",
+                                      "--out", str(tmp_path / "jax.wav")] + jflags)
+    jax_synth.main()
+    port_synth.main(tflags + ["--device", "cpu", "--out", str(tmp_path / "port.wav")])
+    (sr_j, a), (sr_t, b) = (wavfile.read(str(tmp_path / f"{n}.wav"))
+                            for n in ("jax", "port"))
+    assert sr_j == sr_t and a.dtype == b.dtype == np.int16
+    assert a.shape == b.shape and a.size > 0
+    assert np.abs(a.astype(np.int32) - b.astype(np.int32)).max() <= 4
+
+
+@pytest.mark.parametrize("argv", [
+    ["generate", "--gc-id", "3"], ["generate", "--gc-id", "-1"],
+    ["synthesize", "--speaker", "3"]])
+def test_cli_refuses_ids_outside_tables(wavenet_ckpt, tts_ckpts, argv):
+    """An id past the gc table (cardinality 3) stops either CLI before
+    anything runs, with the id in the message."""
+    if argv[0] == "generate":
+        main, flags = port_cli.main, [str(wavenet_ckpt / "port")]
+    else:
+        d, _, _ = tts_ckpts
+        main, flags = port_synth.main, [
+            "--checkpoint", str(d / "taco"), "--vocoder-checkpoint",
+            str(d / "voc"), "--text", "hi"]
+    with pytest.raises(SystemExit, match=r"out of range \[0, 3\)"):
+        main(flags + argv[1:] + ["--device", "cpu"])

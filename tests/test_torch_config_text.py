@@ -19,7 +19,7 @@ from nspeech_tpu_torch.text import text_to_sequence as t_text2seq
 torch.set_num_threads(1)
 
 
-@pytest.mark.parametrize("model", ["taco2", "wavenet"])
+@pytest.mark.parametrize("model", ["taco2", "wavenet", "simple_wavenet"])
 def test_hparams_equal_yaml(model):
     assert tcfg.load_config(model).values() == jcfg.load_config(model).values()
 

@@ -13,7 +13,11 @@ Tolerance: the kernel's code must score within 1e-4 of the plain
 version's best score at every step (same inputs, same Philox noise;
 float32 sums in another order); resumed rings within 1e-4 relative.
 Carried launches against one launch: identical (same kernel, same
-arithmetic, same noise)."""
+arithmetic, same noise). The kernel runs one 8-CTA cluster per stream:
+a batch with more streams than clusters fit on the card runs in waves
+and must give what the plain version gives; a model without local
+conditioning (M = 0, the ``simple_wavenet`` preset) runs without the
+cluster's lc projection."""
 
 import numpy as np
 import pytest
@@ -261,3 +265,57 @@ def test_streaming_on_card_launches_the_carried_kernel(cuda):
     ref = voc.vocode_batch(tts.last_mel_batch, [0, 2], temperature=1.0)
     for i, w in enumerate(wavs):
         assert w.size == 3000 and np.array_equal(w, ref[i])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("temperature", [0.0, 1.0])
+def test_unconditioned_kernel_matches_plain(cuda, temperature):
+    """M = 0 (``simple_wavenet`` at tiny widths, no lc, no speakers)."""
+    net = WaveNet(load_config("simple_wavenet").parse(
+        "dilations_length=3,dilations_depth=2,residual_channels=8,"
+        "dilation_channels=8,skip_channels=16,quantization_channels=64"))
+    params = tree_to(net.init(0), cuda)
+    gen = CudaWaveNetGenerator(net, params)
+    codes = gen(200, seed=3, batch=2, temperature=temperature)
+    gap, _ = score_gap(net, params, gen.chunk_carry0(2), codes, None, None, 3,
+                       temperature)
+    assert gap <= 1e-4
+
+
+@pytest.mark.gpu
+def test_batch_beyond_resident_clusters(cuda):
+    """Full width, one stream more than the card runs at once (at least
+    17): the streams run in waves and each is held to the plain version."""
+    net = WaveNet(load_config("wavenet").parse(
+        "lc_channels=80,gc_channels=16,gc_category_cardinality=4"))
+    params = tree_to(net.init(0), cuda)
+    gen = CudaWaveNetGenerator(net, params)
+    batch = max(17, wavenet_gen.SAMPLER.max_active_clusters(gen.packed) + 1)
+    n = 24
+    lc = torch.rand(batch, n, 80, device=cuda,
+                    generator=torch.Generator(cuda).manual_seed(4))
+    codes = gen(n, seed=5, batch=batch, lc=lc, temperature=1.0)
+    gap, _ = score_gap(net, params, gen.chunk_carry0(batch), codes, lc, None,
+                       5, 1.0)
+    assert gap <= 1e-4
+
+
+@pytest.mark.gpu
+def test_bad_gc_id_leaves_the_context_usable(cuda):
+    """An id past the gc table raises ClientError before any launch; the
+    next request on the same process runs."""
+    from nspeech_tpu_torch.serving import ClientError, WaveNetVocoder
+
+    vcfg = load_config("wavenet").parse(TINY_WN.replace("lc_channels=5",
+                                                        "lc_channels=80"))
+    net = WaveNet(vcfg)
+    voc = WaveNetVocoder(vcfg).set_variables(net, net.init(1))
+    mels = np.random.default_rng(0).random((2, 3, 80)).astype(np.float32)
+    before = wavenet_gen.SAMPLER.launches
+    with pytest.raises(ClientError, match="gc id 3"):
+        voc.vocode_batch(mels, [0, 3])
+    assert wavenet_gen.SAMPLER.launches == before
+    wav = voc.vocode_batch(mels, [0, 2])
+    torch.cuda.synchronize()
+    assert wav.shape == (2, 750) and np.isfinite(wav).all()
+    assert wavenet_gen.SAMPLER.launches == before + 1

@@ -3,9 +3,10 @@ Tacotron-2 -> Griffin-Lim endpoint -> mel-conditioned WaveNet -> waveform,
 at tiny widths on the CPU (the port's sampler wrapper runs its plain
 version there).
 
-Both sides get the same weights (bridged) and the same Griffin-Lim initial
-phase (the JAX synthesizer's per-row ``uniform(split(PRNGKey(0), n)[i])``
-handed to the port). Tolerances: mel within 1e-4; at temperature 0 the
+Both sides get the same weights (bridged) and draw the same Griffin-Lim
+initial phase: the port's synthesizer draws JAX's per-row
+``uniform(split(PRNGKey(0), n)[i])`` itself (``ops/threefry.py``).
+Tolerances: mel within 1e-4; at temperature 0 the
 codes must be identical, so the vocoded waveforms agree to float32
 rounding of the mu-law decode (1e-6)."""
 
@@ -39,12 +40,6 @@ VOC = ("dilations_length=3,dilations_depth=1,residual_channels=8,"
        "lc_channels=80,gc_channels=4,gc_category_cardinality=3")
 
 
-def jax_phase(n, shape):
-    keys = jax.random.split(jax.random.PRNGKey(0), n)
-    return torch.from_numpy(np.stack(
-        [np.asarray(jax.random.uniform(k, shape)) for k in keys]))
-
-
 @pytest.fixture(scope="module")
 def pipelines():
     jcfg, tcfg = j_load("taco2").parse(TACO), t_load("taco2").parse(TACO)
@@ -57,7 +52,6 @@ def pipelines():
         jax.tree_util.tree_map(np.asarray, js))
     tsyn = TSynth(tcfg, text_bucket=16, device="cpu").set_variables(
         tp, ts, model=tmodel)
-    tsyn.initial_phase = lambda shape: jax_phase(shape[0], shape[1:])
 
     jvcfg, tvcfg = j_load("wavenet").parse(VOC), t_load("wavenet").parse(VOC)
     jnet = create_model("wavenet", jvcfg)

@@ -19,8 +19,9 @@ from nspeech_tpu.ops.pallas.wavenet_gen import generate_pallas
 from nspeech_tpu_torch import convert
 from nspeech_tpu_torch.config import load_config as t_load
 from nspeech_tpu_torch.models.wavenet import WaveNet as TWaveNet
-from nspeech_tpu_torch.ops.cuda.wavenet_gen import (CudaWaveNetGenerator,
-                                                    pack_params)
+from nspeech_tpu_torch.ops.cuda.wavenet_gen import (HEAD_RANKS,
+                                                    CudaWaveNetGenerator,
+                                                    head_columns, pack_params)
 from nspeech_tpu_torch.ops.philox import gumbel_noise, philox4x32
 
 torch.set_num_threads(1)
@@ -194,22 +195,97 @@ def test_generator_refuses_unsupported_models(extra):
         CudaWaveNetGenerator(tnet, tnet.init(0))
 
 
+def gate_matrix(p, R):
+    """The [L, 2R + M, 2DC] gate matrices over [state | current | lc]
+    rebuilt from the kernel's split layout (``wfg_chain`` output-major
+    [L, 2DC, 2R + DC] over [state | previous residual | previous gates],
+    ``wlc`` [L, M, 2DC])."""
+    return torch.cat([p["wfg_chain"][:, :, :2 * R].transpose(1, 2), p["wlc"]],
+                     dim=1)
+
+
 def test_pack_params_layout():
-    """The kernel's layout holds the same weights: one [2R+M, 2DC] gate
-    matrix per layer over [state | current | lc], and per-speaker biases."""
+    """The kernel's layout holds the same weights: per layer the chain
+    rows [state | current] and the lc rows of the gate matrix, the
+    previous layer's dense matrix (output-major) and its fold into this
+    layer's gates, and per-speaker biases."""
     _, _, tnet, tparams = nets(
         "lc_channels=5,gc_channels=4,gc_category_cardinality=3")
     p = pack_params(tnet, tparams, [2, 0])
     L, R, DC, S, Q, M = 6, 8, 8, 16, 64, 5
-    assert p["wfg"].shape == (L, 2 * R + M, 2 * DC)
+    assert p["wfg_chain"].shape == (L, 2 * DC, 2 * R + DC)
+    assert p["wlc"].shape == (L, M, 2 * DC)
+    assert p["wdense"].shape == (L, R, DC)
     assert p["bfg"].shape == (L, 2, 2 * DC)
-    assert p["wskip"].shape == (L * DC, S)
+    assert p["head"].shape == (L * DC * S + S * S + S * Q,)
     assert p["dilations"].tolist() == tnet.dilations
-    lp = tparams["layers"][4]
-    np.testing.assert_array_equal(p["wfg"][4, R:2 * R, DC:].numpy(),
+    assert all(v.is_contiguous() for v in p.values())
+    lp, before = tparams["layers"][4], tparams["layers"][3]
+    wfg = gate_matrix(p, R)
+    np.testing.assert_array_equal(wfg[4, R:2 * R, DC:].numpy(),
                                   lp["gate"][1].numpy())
-    np.testing.assert_array_equal(p["wfg"][4, 2 * R:, :DC].numpy(),
+    np.testing.assert_array_equal(wfg[4, 2 * R:, :DC].numpy(),
                                   lp["lc_filter"][0].numpy())
+    # row l of the dense weights is layer l - 1's, folded into layer l
+    np.testing.assert_array_equal(p["wdense"][4].T.numpy(),
+                                  before["dense"][0].numpy())
+    assert not p["wdense"][0].any() and not p["wfg_chain"][0, :, 2 * R:].any()
+    wcur = torch.cat([lp["filter"][1], lp["gate"][1]], dim=1)
+    np.testing.assert_allclose(p["wfg_chain"][4, :, 2 * R:].T.numpy(),
+                               (before["dense"][0] @ wcur).numpy(), atol=1e-6)
     gc = tparams["gc_embedding"][2]
     np.testing.assert_allclose(p["bfg"][4, 0, :DC].numpy(),
                                (gc @ lp["gc_filter"][0]).numpy(), atol=1e-6)
+    with pytest.raises(ValueError, match="gc ids"):
+        pack_params(tnet, tparams, [0, 3])        # the table has 3 rows
+
+
+@pytest.mark.parametrize("extra", ["", "lc_channels=5",
+                                   "lc_channels=80,use_biases=True"])
+def test_pack_params_split_rebuilds_gate_matrix(extra):
+    """``wfg_chain`` and ``wlc`` together are exactly the one [2R + M, 2DC]
+    matrix per layer over [state | current | lc] that the sampler's input
+    row multiplies (M = 0 without local conditioning)."""
+    _, _, tnet, tparams = nets(extra)
+    p = pack_params(tnet, tparams)
+    M = tnet.lc_channels
+    for l, lp in enumerate(tparams["layers"]):
+        rows = [torch.cat([lp["filter"][0], lp["gate"][0]], dim=1),
+                torch.cat([lp["filter"][1], lp["gate"][1]], dim=1)]
+        if M:
+            rows.append(torch.cat([lp["lc_filter"][0], lp["lc_gate"][0]], dim=1))
+        want = torch.cat(rows, dim=0)
+        got = gate_matrix(p, tnet.residual_channels)[l]
+        assert got.shape == (2 * tnet.residual_channels + M,
+                             2 * tnet.dilation_channels)
+        assert torch.equal(got, want)
+
+
+def unpack_head(head, K, S, Q):
+    """W_skip [K, S], post1 [S, S] and post2 [S, Q] from the packed head,
+    head rank by head rank."""
+    wskip, post1, post2 = (torch.full(shape, float("nan"))
+                           for shape in ((K, S), (S, S), (S, Q)))
+    o = 0
+    for h in range(HEAD_RANKS):
+        cs, qs = head_columns(S, h), head_columns(Q, h)
+        for m, cols in ((wskip, cs), (post1, cs), (post2, qs)):
+            block = m[:, cols]
+            m[:, cols] = head[o:o + block.numel()].reshape(block.shape)
+            o += block.numel()
+    assert o == head.numel()
+    return wskip, post1, post2
+
+
+@pytest.mark.parametrize("skip,quant", [(16, 64), (512, 256), (20, 12)])
+def test_pack_params_head_blocks_cover_the_head(skip, quant):
+    """The head's weights are packed as the cluster's head ranks stream
+    them (each rank's columns of W_skip, post1 and post2, contiguous); the
+    blocks hold every weight once, at widths that split unevenly too."""
+    _, _, tnet, tparams = nets(f"skip_channels={skip},quantization_channels={quant}")
+    p = pack_params(tnet, tparams)
+    want = torch.cat([lp["skip"][0] for lp in tparams["layers"]], dim=0)
+    wskip, post1, post2 = unpack_head(p["head"], want.shape[0], skip, quant)
+    assert torch.equal(wskip, want)
+    assert torch.equal(post1, tparams["post1"][0])
+    assert torch.equal(post2, tparams["post2"][0])
