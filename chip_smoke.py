@@ -36,8 +36,9 @@
    from a seeded 1 s wav with a seeded mel and ``--gc-id 1`` (CLI_SAMPLES
    samples; counts the primed launches), then with ``--stream-chunk 2000``
    (carried launches), then ``cli.synthesize`` with a full-width
-   Tacotron-2 checkpoint and the vocoder checkpoint (one-shot launches).
-   Prints the wall times, samples/s and the priming time.
+   Tacotron-2 checkpoint and the vocoder checkpoint (one-shot launches),
+   then ``cli.eval --skip-harvard`` through the vocoder (8 wavs and 16
+   PNGs). Prints the wall times, samples/s and the priming time.
 6. Serves 3 ``TextToSpeech.synthesize`` requests and one
    ``synthesize_batch`` of 4 with speaker ids at full Tacotron-2 and
    WaveNet width (seeded weights, decoder cut to MAX_ITERS steps), counts
@@ -53,11 +54,26 @@
    stream equals ``WaveNetVocoder.vocode_batch`` of the stream's own mel
    at the same seed and that the mel is within MEL_TOL of
    ``Tacotron2.forward``'s.
-8. Prints each form's time per sample (per step for the primed form)
-   beside its bound, one ``{"kernels": [...]}`` line (one-shot, carried
-   and primed records) and, last, the
-   ``{"ok": true, "device": ...}`` line. Exits non-zero without a card or
-   when any check fails.
+8. Serves Tacotron-1 at its published widths (``taco1`` preset, seeded
+   weights, MAX_ITERS steps): two requests and a batch of 2 through
+   ``TextToSpeech``, one stream at T=0 through ``StreamingTTS`` (equal to
+   ``vocode_batch`` of its own mel), then each other attention type
+   through Griffin-Lim; every mel within TACO_TOL of the CPU forward of
+   the same weights.
+9. Runs the demo server (``cli/demo_server.py``) over the full-width
+   Tacotron-2 and the vocoder with a ``DynamicBatcher`` (8, 50 ms) and a
+   ``StreamBatcher`` (4, 50 ms), after its ``_warmup``, on a free port of
+   127.0.0.1: 8 concurrent ``/synthesize``, 4 concurrent
+   ``/synthesize_stream``, a ``/synthesize_batch`` of 3, a long-form text
+   through the batcher, then ``/stats``. Checks every WAV, the 400 for a
+   bad ``speaker_id``, ``max_batch_seen`` >= 2 for both batchers, and
+   fewer sampler launches than requests (requests shared launches).
+10. Prints each form's time per sample (per step for the primed form)
+    beside its bound, one ``{"kernels": [...]}`` line (one-shot, carried
+    and primed records; ``launches`` summed over the paths of phases
+    5-9, each counted from 0 just before it) and, last, the
+    ``{"ok": true, "device": ...}`` line. Exits non-zero without a card
+    or when any check fails.
 """
 
 from __future__ import annotations
@@ -84,6 +100,7 @@ N_PRIMED = 300          # samples kept after them
 CLI_SAMPLES = 4000      # samples per generation CLI run
 MAX_ITERS = 40          # decoder steps per request: 200 frames at r=5
 MEL_TOL = 1e-3          # windowed vs full-buffer postnet (float32 convs)
+TACO_TOL = 1e-3         # Tacotron-1 mels, card vs CPU forward (float32, TF32 off)
 VOCODER_HPARAMS = "lc_channels=80,gc_channels=16,gc_category_cardinality=4"
 PEAK_F32_FLOPS = 67e12  # H100 SXM, float32 outside the tensor cores
 PEAK_BYTES = 3.35e12    # H100 SXM HBM3
@@ -471,16 +488,19 @@ def primed_phase():
 
 
 def cli_phase(tmp: str):
-    """The two CLIs on the card, from serving checkpoints written into
+    """The CLIs on the card, from serving checkpoints written into
     ``tmp``: ``generate_wavenet`` primed from a seed wav (K3), then
-    streamed (K4), then ``synthesize`` (Tacotron-2 + vocoder, K1). Returns
-    (ok, primed launches on the primed run)."""
+    streamed (K4), then ``synthesize`` (Tacotron-2 + vocoder, K1), then
+    ``eval --skip-harvard`` through the vocoder (8 sentences, K1). Returns
+    (ok, launches of each form over these runs: one-shot, primed,
+    carried)."""
     import contextlib
     import io
     import os
 
     from scipy.io import wavfile
 
+    from nspeech_tpu_torch.cli import eval as eval_cli
     from nspeech_tpu_torch.cli import generate_wavenet, synthesize
     from nspeech_tpu_torch.config import load_config
     from nspeech_tpu_torch.models.tacotron2 import Tacotron2
@@ -501,6 +521,7 @@ def cli_phase(tmp: str):
     np.save(mel_path, rng.random((frames, 80)).astype(np.float32))
     counters = (wavenet_gen.SAMPLER, wavenet_gen.PRIMED_SAMPLER,
                 wavenet_gen.CARRIED_SAMPLER)
+    totals = [0, 0, 0]
 
     def run(main, argv):
         for c in counters:
@@ -514,6 +535,8 @@ def cli_phase(tmp: str):
         wall = time.perf_counter() - t0
         for line in out.getvalue().splitlines():
             print("  |", line)
+        for i, c in enumerate(counters):
+            totals[i] += c.launches
         return wall, [c.launches for c in counters], out.getvalue()
 
     ok = True
@@ -526,7 +549,6 @@ def cli_phase(tmp: str):
     good = (primed >= 1 and one == 0 and wav.size == CLI_SAMPLES
             and f"Primed with {net.receptive_field} seed samples" in out)
     ok &= good
-    primed_launches = primed
     # the priming alone: a launch of the same seed with one kept sample
     gen = wavenet_gen.CudaWaveNetGenerator(net, vparams, gc_ids=[1])
     seeds = torch.randint(0, net.quantization_channels,
@@ -570,7 +592,23 @@ def cli_phase(tmp: str):
     print(f"cli synthesize: {wall:.3f} s wall (checkpoint loads included), "
           f"launches one-shot {one}; wav {wav.size} samples -> "
           f"{'ok' if good else 'FAIL'}")
-    return ok, primed_launches
+
+    eval_dir = os.path.join(tmp, "eval")
+    wall, (one, primed, carried), out = run(eval_cli.main, [
+        "--checkpoint", taco_dir, "--hparams", f"max_iters={MAX_ITERS}",
+        "--vocoder-checkpoint", voc_dir, "--skip-harvard", "--output-dir",
+        eval_dir])
+    files = sorted(os.listdir(eval_dir))
+    wavs = [f for f in files if f.endswith(".wav")]
+    pngs = [f for f in files if f.endswith(".png")]
+    sizes = [wavfile.read(os.path.join(eval_dir, f))[1].size for f in wavs]
+    good = (len(wavs) == 8 and len(pngs) == 16 and one == 8
+            and all(n > 0 for n in sizes))
+    ok &= good
+    print(f"cli eval --skip-harvard (vocoder): {wall:.3f} s wall, {len(wavs)} "
+          f"wavs {sizes} samples, {len(pngs)} PNGs, launches one-shot {one} -> "
+          f"{'ok' if good else 'FAIL'}")
+    return ok, totals
 
 
 def e2e_phase():
@@ -722,8 +760,10 @@ def streaming_phase():
     return ok, launches
 
 
-def one_shot_mels(syn, texts, speakers):
-    """``Tacotron2.forward``'s mel for the stream's padded batch."""
+def one_shot_mels(syn, texts, speakers, params=None, bn_state=None):
+    """The model's forward mel for the ``Synthesizer``'s (and the
+    stream's) padded batch: on the synthesizer's device and weights, or,
+    given ``params`` and ``bn_state``, on theirs (the CPU reference)."""
     from nspeech_tpu_torch.text import text_to_sequence
 
     n = max(1, 1 << (len(texts) - 1).bit_length())
@@ -737,9 +777,310 @@ def one_shot_mels(syn, texts, speakers):
     spk = torch.zeros(n, dtype=torch.int64)
     if speakers is not None:
         spk[: len(texts)] = torch.tensor(speakers)
-    out = syn.model.forward(syn._params, syn._bn_state, ids.to(syn.device),
-                            lengths.to(syn.device), spk.to(syn.device))
+    if params is None:
+        params, bn_state, dev = syn._params, syn._bn_state, syn.device
+    else:
+        dev = params["embedding"]["table"].device
+    out = syn.model.forward(params, bn_state, ids.to(dev), lengths.to(dev),
+                            spk.to(dev))
     return out["mel_outputs"][: len(texts)].cpu().numpy()
+
+
+def reset_launches():
+    from nspeech_tpu_torch.ops.cuda import wavenet_gen
+
+    for sampler in (wavenet_gen.SAMPLER, wavenet_gen.PRIMED_SAMPLER,
+                    wavenet_gen.CARRIED_SAMPLER):
+        sampler.launches = 0
+
+
+def taco1_phase():
+    """Tacotron-1 at its published widths through the serving path: two
+    requests and a batch of 2 through ``TextToSpeech`` (K1/K2), one stream
+    through ``StreamingTTS`` (K4), then the other five attention types
+    through Griffin-Lim. Each mel is held to the CPU forward of the same
+    weights (TACO_TOL); the stream at T=0 to ``vocode_batch`` of its own
+    mel. Returns (ok, one-shot launches, carried launches)."""
+    from nspeech_tpu_torch.config import load_config
+    from nspeech_tpu_torch.models.attention import ATTENTION_TYPES
+    from nspeech_tpu_torch.models.tacotron import Tacotron1
+    from nspeech_tpu_torch.ops.cuda import wavenet_gen
+    from nspeech_tpu_torch.serving import (StreamingTTS, Synthesizer,
+                                           TextToSpeech, WaveNetVocoder)
+
+    cfg = load_config("taco1").parse(f"max_iters={MAX_ITERS}")
+    print(f"taco1: published widths (r={cfg.outputs_per_step}, "
+          f"{cfg.encoder_cbhg_banks}-bank encoder CBHG, {cfg.attention_type} "
+          f"attention), max_iters={MAX_ITERS}, vocoder {VOCODER_HPARAMS}; mels "
+          f"vs the CPU forward of the same weights (tol {TACO_TOL})")
+    model = Tacotron1(cfg)
+    params, bn = model.init(4)              # CPU tensors: the reference
+    syn = Synthesizer(cfg).set_variables(params, bn, model=model)
+    vcfg, net, vparams = vocoder(2)
+    voc = WaveNetVocoder(vcfg).set_variables(net, vparams)
+    tts = TextToSpeech(syn, voc)
+    texts = ["Tacotron one speaks through the sampler.",
+             "A second request on the card.",
+             "Two texts share one batch.",
+             "And one vocoder launch."]
+    tts.synthesize(texts[0])                # warm-up: cuDNN plans
+    torch.cuda.synchronize()
+
+    def gap_to_cpu(mels, batch):
+        ref = one_shot_mels(syn, batch, None, params, bn)
+        return float(np.abs(np.asarray(mels)[:, : ref.shape[1]] - ref).max())
+
+    ok = True
+    reset_launches()
+    for i, text in enumerate(texts[:2]):
+        t0 = time.perf_counter()
+        wav, mel, _ = tts.synthesize(text, temperature=1.0)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        gap = gap_to_cpu(mel[None], [text])
+        good = wav.size > 0 and bool(np.isfinite(wav).all()) and gap <= TACO_TOL
+        ok &= good
+        print(f"taco1 request {i}: {dt:.3f} s wall, mel {mel.shape}, wav "
+              f"{wav.size} samples, mel vs CPU max |diff| {gap:.3g} -> "
+              f"{'ok' if good else 'FAIL'}")
+    t0 = time.perf_counter()
+    wavs, mels, _ = tts.synthesize_batch(texts[2:])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    gap = gap_to_cpu(mels, texts[2:])
+    good = (all(w.size > 0 and np.isfinite(w).all() for w in wavs)
+            and gap <= TACO_TOL)
+    ok &= good
+    print(f"taco1 batch of 2: {dt:.3f} s wall, wav lengths "
+          f"{[w.size for w in wavs]}, mel vs CPU max |diff| {gap:.3g} -> "
+          f"{'ok' if good else 'FAIL'}")
+    st = StreamingTTS(syn, voc, chunk_frames=40, temperature=0.0, growth=4)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    first, parts = None, []
+    for chunk in st.stream(texts[0]):
+        if first is None:
+            first = time.perf_counter() - t0
+        parts.append(chunk)
+    wall = time.perf_counter() - t0
+    one, carried = wavenet_gen.SAMPLER.launches, wavenet_gen.CARRIED_SAMPLER.launches
+    wav = np.concatenate(parts)
+    ref = voc.vocode_batch(st.last_mel_batch, None, temperature=0.0)[0]
+    equal = (np.array_equal(wav, ref[: wav.size])
+             and wav.size == st.last_total_frames * st._hop)
+    gap = gap_to_cpu(st.last_mel[None], texts[:1])
+    good = equal and gap <= TACO_TOL and carried > 0
+    ok &= good
+    print(f"taco1 stream (T=0): time to first audio {first:.3f} s, wall "
+          f"{wall:.3f} s, {len(parts)} chunks {[len(p) for p in parts]}, "
+          f"equals vocode_batch of its mel {equal}, mel vs CPU max |diff| "
+          f"{gap:.3g} -> {'ok' if good else 'FAIL'}")
+    print(f"taco1 sampler launches: one-shot {one} (2 requests + 1 batch), "
+          f"carried {carried}")
+    if one != 3:
+        print("FAIL: the taco1 requests did not launch the sampler once each")
+        ok = False
+    for att in ATTENTION_TYPES:
+        if att == cfg.attention_type:
+            continue
+        acfg = load_config("taco1").parse(
+            f"max_iters={MAX_ITERS},attention_type={att}")
+        amodel = Tacotron1(acfg)
+        aparams, abn = amodel.init(5)
+        asyn = Synthesizer(acfg).set_variables(aparams, abn, model=amodel)
+        t0 = time.perf_counter()
+        wav, mel, _ = asyn.synthesize(texts[1])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        ref = one_shot_mels(asyn, texts[1:2], None, aparams, abn)[0]
+        gap = float(np.abs(mel - ref).max())
+        good = (wav.size > 0 and bool(np.isfinite(wav).all())
+                and bool(np.isfinite(mel).all()) and gap <= TACO_TOL)
+        ok &= good
+        print(f"taco1 {att} (Griffin-Lim): {dt:.3f} s wall, wav {wav.size} "
+              f"samples, mel vs CPU max |diff| {gap:.3g} -> "
+              f"{'ok' if good else 'FAIL'}")
+    return ok, one, carried
+
+
+def server_phase():
+    """The port's demo server on a local port, over the full-width
+    Tacotron-2 + vocoder, with a DynamicBatcher (8, 50 ms) and a
+    StreamBatcher (4, 50 ms): 8 concurrent /synthesize, 4 concurrent
+    /synthesize_stream, one /synthesize_batch of 3, one long-form text
+    through the batcher, then /stats. Returns (ok, one-shot launches,
+    carried launches)."""
+    import io
+    import threading
+    import urllib.error
+    import urllib.request
+    import zipfile
+    from types import SimpleNamespace
+    from urllib.parse import quote
+
+    from scipy.io import wavfile
+
+    from nspeech_tpu_torch.cli import demo_server
+    from nspeech_tpu_torch.config import load_config, stft_params
+    from nspeech_tpu_torch.models.tacotron2 import Tacotron2
+    from nspeech_tpu_torch.ops.cuda import wavenet_gen
+    from nspeech_tpu_torch.serving import (DynamicBatcher, StreamBatcher,
+                                           StreamingTTS, Synthesizer,
+                                           TextToSpeech, WaveNetVocoder,
+                                           synthesize_long)
+
+    cfg = load_config("taco2").parse(f"max_iters={MAX_ITERS}")
+    hop = stft_params(cfg)[1]
+    full = MAX_ITERS * cfg.outputs_per_step * hop   # a decode that never stops
+    model = Tacotron2(cfg)
+    params, bn = model.init(1)
+    syn = Synthesizer(cfg).set_variables(params, bn, model=model)
+    vcfg, net, vparams = vocoder(2)
+    voc = WaveNetVocoder(vcfg).set_variables(net, vparams)
+    vocoded = []                      # (streams, samples, seconds) per call
+    vocode_batch = voc.vocode_batch
+
+    def timed_vocode_batch(mels, *args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = vocode_batch(mels, *args, **kwargs)   # ends in a device->host copy
+        vocoded.append((out.shape[0], out.shape[1], time.perf_counter() - t0))
+        return out
+
+    voc.vocode_batch = timed_vocode_batch
+    batcher = DynamicBatcher(TextToSpeech(syn, voc), max_batch=8, window_ms=50)
+    streams = StreamBatcher(StreamingTTS(syn, voc, chunk_frames=40),
+                            max_batch=4, window_ms=50)
+    print(f"server: taco2 full width, max_iters={MAX_ITERS}, vocoder "
+          f"{VOCODER_HPARAMS}, DynamicBatcher(8, 50 ms), StreamBatcher(4, 50 ms)")
+    t0 = time.perf_counter()
+    demo_server._warmup(batcher, streams, SimpleNamespace(dynamic_batch=8))
+    print(f"server warmup: {time.perf_counter() - t0:.3f} s")
+    vocoded.clear()
+    server = demo_server.make_server(
+        demo_server.make_app(batcher, cfg, streamer=streams), 0, host="127.0.0.1")
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{server.server_port}"
+
+    def concurrent(n, fn):
+        barrier = threading.Barrier(n)
+        out = [None] * n
+
+        def one(i):
+            barrier.wait()
+            try:
+                out[i] = fn(i)
+            except Exception as e:      # noqa: BLE001 - checked below
+                out[i] = e
+
+        threads = [threading.Thread(target=one, args=(i,)) for i in range(n)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        return out
+
+    texts = ["Request number %d reaches the batcher." % i for i in range(8)]
+
+    def synth(i):
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(f"{base}/synthesize?text={quote(texts[i])}",
+                                    timeout=600) as r:
+            status, body = r.status, r.read()
+        sr, wav = wavfile.read(io.BytesIO(body))
+        return status, sr, wav.size, len(body), time.perf_counter() - t0
+
+    def stream(i):
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(
+                f"{base}/synthesize_stream?text={quote(texts[i])}", timeout=600) as r:
+            status, header = r.status, r.read(44)
+            first = r.read(2)
+            ttfb = time.perf_counter() - t0
+            rest = r.read()
+        return status, header, (len(first) + len(rest)) // 2, ttfb,             time.perf_counter() - t0
+
+    ok = True
+    try:
+        # one request first: the HTTP client's and handler's modules load
+        # on first use (under the import lock), which would otherwise
+        # spread the concurrent requests' arrival past the window
+        with urllib.request.urlopen(base + "/", timeout=60) as r:
+            page = r.status == 200 and b"<!doctype html>" in r.read()
+        ok &= page
+        print(f"server GET /: page {page}")
+        reset_launches()
+        got = concurrent(8, synth)
+        for i, g in enumerate(got):
+            good = (not isinstance(g, Exception) and g[0] == 200
+                    and g[1] == cfg.sample_rate and 0 < g[2] <= full
+                    and g[3] == 44 + 2 * g[2])
+            ok &= good
+            print(f"server /synthesize {i}: "
+                  + (f"{g[4]:.3f} s wall, status {g[0]}, wav {g[2]} samples"
+                     if not isinstance(g, Exception) else f"error {g!r}")
+                  + f" -> {'ok' if good else 'FAIL'}")
+        got = concurrent(4, stream)
+        for i, g in enumerate(got):
+            good = (not isinstance(g, Exception) and g[0] == 200
+                    and g[1][:4] == b"RIFF" and g[1][8:12] == b"WAVE"
+                    and g[2] == full)
+            ok &= good
+            print(f"server /synthesize_stream {i}: "
+                  + (f"time to first audio {g[3]:.3f} s, wall {g[4]:.3f} s, "
+                     f"{g[2]} samples" if not isinstance(g, Exception)
+                     else f"error {g!r}")
+                  + f" -> {'ok' if good else 'FAIL'}")
+        t0 = time.perf_counter()
+        req = urllib.request.Request(
+            base + "/synthesize_batch", method="POST",
+            data=json.dumps({"texts": texts[:3]}).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=600) as r:
+            status, body = r.status, r.read()
+        zf = zipfile.ZipFile(io.BytesIO(body))
+        sizes = [wavfile.read(io.BytesIO(zf.read(n)))[1].size for n in zf.namelist()]
+        good = (status == 200 and zf.namelist() == ["utt_000.wav", "utt_001.wav",
+                                                    "utt_002.wav"]
+                and all(0 < n <= full for n in sizes))
+        ok &= good
+        print(f"server /synthesize_batch of 3: {time.perf_counter() - t0:.3f} s "
+              f"wall, wavs {sizes} samples -> {'ok' if good else 'FAIL'}")
+        t0 = time.perf_counter()
+        wav = synthesize_long(batcher, "Long form in three pieces. Each one a "
+                              "sentence. They share one batch.", pause_ms=150)
+        good = wav.size > 2 * int(0.15 * cfg.sample_rate) and bool(np.isfinite(wav).all())
+        ok &= good
+        print(f"server synthesize_long (3 sentences, via the batcher): "
+              f"{time.perf_counter() - t0:.3f} s wall, {wav.size} samples -> "
+              f"{'ok' if good else 'FAIL'}")
+        one = wavenet_gen.SAMPLER.launches
+        carried = wavenet_gen.CARRIED_SAMPLER.launches
+        try:
+            urllib.request.urlopen(f"{base}/synthesize?text=hi&speaker_id=abc",
+                                   timeout=60)
+            bad = None
+        except urllib.error.HTTPError as e:
+            bad = e.code
+        with urllib.request.urlopen(base + "/stats", timeout=60) as r:
+            stats = json.loads(r.read())
+    finally:
+        server.shutdown()
+        server.server_close()
+        batcher.close()
+        streams.close()
+    dyn = stats["dynamic_batching"]["max_batch_seen"]
+    strm = stats["stream_batching"]["max_batch_seen"]
+    good = bad == 400 and dyn >= 2 and strm >= 2 and one < 10 and carried < 4
+    ok &= good
+    calls = [(n, s, round(t, 3)) for n, s, t in vocoded]
+    print(f"server: speaker_id=abc -> {bad}; /stats max_batch_seen dynamic "
+          f"{dyn}, stream {strm}; sampler launches one-shot {one} for 10 "
+          f"requests (8 + batch + long-form), carried {carried} for 4 streams; "
+          f"vocoder calls (streams, samples, s) {calls} -> "
+          f"{'ok' if good else 'FAIL'}")
+    return ok, one, carried
 
 
 def main() -> int:
@@ -755,8 +1096,16 @@ def main() -> int:
     primed = primed_phase()
     e2e_ok, record["launches"] = e2e_phase()
     stream_ok, carried["launches"] = streaming_phase()
+    taco1_ok, one, more = taco1_phase()
+    record["launches"] += one
+    carried["launches"] += more
+    server_ok, one, more = server_phase()
+    record["launches"] += one
+    carried["launches"] += more
     with tempfile.TemporaryDirectory() as tmp:
-        cli_ok, primed["launches"] = cli_phase(tmp)
+        cli_ok, (one, primed["launches"], more) = cli_phase(tmp)
+    record["launches"] += one
+    carried["launches"] += more
     print(f"smoke took {time.perf_counter() - start:.1f} s after the card line")
     for rec in (record, carried, primed):
         for form, ms, bound in rec.pop("per_sample"):
@@ -764,7 +1113,7 @@ def main() -> int:
                   f"us ({ms / bound:.0f} x the bound)")
     print(json.dumps({"kernels": [record, carried, primed]}))
     if not (record["checked"] and carried["checked"] and primed["checked"]
-            and e2e_ok and stream_ok and cli_ok):
+            and e2e_ok and stream_ok and taco1_ok and server_ok and cli_ok):
         print("FAIL", file=sys.stderr)
         return 1
     print(json.dumps({"ok": True, "device": {

@@ -4,10 +4,11 @@
         --text "..." [--vocoder-checkpoint VOC_DIR] [options]
 
 Port of the JAX package's ``synthesize.py``, on the port's serving
-checkpoints (``train/checkpoint.py``): Tacotron-2 mels, then the
+checkpoints (``train/checkpoint.py``): Tacotron-1 or -2 mels, then the
 mel-conditioned WaveNet vocoder (the CUDA sampler on ``--device cuda``,
 the default; the plain generator on ``cpu``), or Griffin-Lim without a
-vocoder checkpoint.
+vocoder checkpoint. ``--long`` splits a text of any length into pieces
+served as one batch (``serving/longform.py``).
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import argparse
 from nspeech_tpu_torch.dsp.wavio import save_wav
 from nspeech_tpu_torch.serving import Synthesizer, TextToSpeech, WaveNetVocoder
 from nspeech_tpu_torch.serving.errors import ClientError, check_ids
+from nspeech_tpu_torch.serving.longform import DEFAULT_MAX_CHARS, synthesize_long
 
 
 def main(argv=None) -> None:
@@ -36,20 +38,23 @@ def main(argv=None) -> None:
     parser.add_argument("--temperature", type=float, default=1.0)
     parser.add_argument("--out", default="synth.wav")
     parser.add_argument("--long", action="store_true",
-                        help="Long-form mode (not ported yet: ROADMAP.md "
-                             "section 1, item 10)")
+                        help="Long-form mode: split the text at sentence/"
+                        "clause boundaries, synthesize the pieces as one "
+                        "batch, and join them with pauses (no decoder frame "
+                        "cap on the total length)")
+    parser.add_argument("--pause-ms", type=float, default=150.0,
+                        help="Silence between long-form pieces")
+    parser.add_argument("--max-chars", type=int, default=DEFAULT_MAX_CHARS,
+                        help="Max characters per long-form piece")
     parser.add_argument("--data-parallel", action="store_true",
                         help="Shard batched synthesis over devices (not "
-                             "ported yet: ROADMAP.md section 1, item 15)")
+                             "ported yet: ROADMAP.md section 1, item 5)")
     parser.add_argument("--device", default="cuda",
                         help="cuda (the sampler kernel) or cpu (plain)")
     args = parser.parse_args(argv)
-    if args.long:
-        raise SystemExit("--long needs serving/longform.py, not ported yet "
-                         "(ROADMAP.md section 1, item 10)")
     if args.data_parallel:
         raise SystemExit("--data-parallel needs multi-GPU serving, not "
-                         "ported yet (ROADMAP.md section 1, item 15)")
+                         "ported yet (ROADMAP.md section 1, item 5)")
 
     # The run metadata next to the checkpoint supplies the training-time
     # hparams (incl. the mutated num_speakers); --hparams and
@@ -76,8 +81,15 @@ def main(argv=None) -> None:
             check_ids([args.speaker], vocoder.net.gc_cardinality, "gc id")
     except ClientError as e:
         raise SystemExit(f"--speaker: {e}") from None
-    wav, _mel, _lin = tts.synthesize(args.text, args.speaker,
-                                     temperature=args.temperature)
+    if args.long:
+        # one batch of pieces; the vocoder samples at its default
+        # temperature, as the JAX CLI's long-form route does
+        wav = synthesize_long(tts, args.text, args.speaker,
+                              sample_rate=cfg.sample_rate,
+                              pause_ms=args.pause_ms, max_chars=args.max_chars)
+    else:
+        wav, _mel, _lin = tts.synthesize(args.text, args.speaker,
+                                         temperature=args.temperature)
     save_wav(wav, args.out, cfg.sample_rate)
     print("Wrote %s (%.2fs of audio, vocoder=%s)" % (
         args.out, len(wav) / cfg.sample_rate,

@@ -80,3 +80,10 @@ def stft_params(cfg: Config) -> tuple[int, int, int]:
     hop_length = int(cfg.frame_shift_ms / 1000 * cfg.sample_rate)
     win_length = int(cfg.frame_length_ms / 1000 * cfg.sample_rate)
     return n_fft, hop_length, win_length
+
+
+def debug_string(cfg: Config) -> str:
+    """The hparams, one ``  name: value`` line each, sorted by name."""
+    values = cfg.values()
+    return "Hyperparameters:\n" + "\n".join(
+        "  %s: %s" % (name, values[name]) for name in sorted(values))

@@ -47,9 +47,12 @@ def wavenet_params(net, params, device="cpu"):
     return _bridge(net.init(0), params, "", device)
 
 
-def tacotron2_variables(model, params, state, device="cpu") -> Tuple[Any, Any]:
-    """JAX ``Tacotron2.init`` (params, bn_state) -> the port's, on
-    ``device``."""
+def tacotron_variables(model, params, state, device="cpu") -> Tuple[Any, Any]:
+    """JAX ``Tacotron1.init`` or ``Tacotron2.init`` (params, bn_state) ->
+    the port's, on ``device``, for the port's model of the same config."""
     t_params, t_state = model.init(0)
     return (_bridge(t_params, params, "", device),
             _bridge(t_state, state, "", device))
+
+
+tacotron2_variables = tacotron_variables

@@ -1,7 +1,7 @@
 """Hyperparameter tables, as Python dicts.
 
 The port's copy of
-``nspeech_tpu/hparams/{audio,train,taco2,wavenet,simple_wavenet}.yaml``
+``nspeech_tpu/hparams/{audio,train,taco1,taco2,wavenet,simple_wavenet}.yaml``
 (the configuration contract: same keys, same values). They are dicts and
 not YAML because the port must run where no YAML parser is installed; a
 test holds them equal to the JAX package's parsed files.
@@ -41,6 +41,26 @@ TRAIN = {
     "ema_decay": 0.0,
     "scheduled_sampling_ratio": 0.0,
     "compute_dtype": "float32",
+}
+
+TACO1 = {
+    "outputs_per_step": 5,
+    "embedding_dim": 256,
+    "speaker_embed_dim": 16,
+    "num_speakers": 1,
+    "attention_type": "bah",
+    "drop_rate": 0.5,
+    "encoder_prenet": [256, 128],
+    "encoder_cbhg_banks": 16,
+    "encoder_cbhg_bank_sizes": [128, 128],
+    "attention_dim": 256,
+    "decoder_dim": 256,
+    "post_cbhg_banks": 8,
+    "post_cbhg_bank_sizes": [256],
+    "guided_attention_weight": 0.0,
+    "guided_attention_sigma": 0.2,
+    "attention_win_fwd": 0,
+    "attention_win_back": 1,
 }
 
 TACO2 = {
@@ -108,4 +128,4 @@ SIMPLE_WAVENET = {
     "l2_regularization_strength": 0,
 }
 
-MODELS = {"taco2": TACO2, "wavenet": WAVENET, "simple_wavenet": SIMPLE_WAVENET}
+MODELS = {"taco1": TACO1, "taco2": TACO2, "wavenet": WAVENET, "simple_wavenet": SIMPLE_WAVENET}

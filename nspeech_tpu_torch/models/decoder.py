@@ -1,4 +1,4 @@
-"""Autoregressive decode with early stop for Tacotron-2 inference.
+"""Autoregressive decode with early stop for Tacotron inference.
 
 Port of ``scan_autoregressive``, ``start_autoregressive``,
 ``scan_autoregressive_chunk`` and the output assembly of

@@ -53,8 +53,11 @@ class Tacotron2:
             rng, cfg.embedding_dim, cfg.encoder_conv_layers,
             cfg.encoder_conv_width, cfg.encoder_conv_channels,
             cfg.encoder_lstm_units)
+        # location-sensitive whatever attention_type says, as in the
+        # reference
         params["attention"] = A.init_attention(
-            rng, cfg.attention_dim, self._memory_dim, cfg.attention_dim)
+            rng, "location_sensitive", cfg.attention_dim, self._memory_dim,
+            cfg.attention_dim)
         params["decoder_prenet"] = L.init_prenet(
             rng, M_dim + self._memory_dim, [256, 128])
         attn_in = 128
@@ -92,7 +95,8 @@ class Tacotron2:
                 pre = torch.cat([pre, spk_pre], dim=-1)
             out1, (c1, h1) = L.lstm_cell(params["attn_lstm"], pre, (c1, h1))
             m = A.window_mask(align, mask, win_back, win_fwd) if win_fwd > 0 else mask
-            context, align = A.attention_step(params["attention"], out1, align,
+            context, align = A.attention_step(params["attention"],
+                                              "location_sensitive", out1, align,
                                               keys_mem, values, m)
             out2, (c2, h2) = L.lstm_cell(params["lstm1"],
                                          torch.cat([out1, context], dim=-1),

@@ -14,6 +14,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Dict, Tuple
 
@@ -23,6 +24,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _LOADED: Dict[Tuple[str, Tuple[str, ...]], Tuple[ctypes.CDLL, str]] = {}
+# a server's worker threads (the batchers) may reach their first launch
+# together: one of them builds, the others wait for its library
+_LOCK = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -42,10 +46,15 @@ def build(source: str, defines: Tuple[str, ...] = ()) -> Tuple[ctypes.CDLL, str]
     (once per process, source hash and defines) and return ``(library,
     ptxas report)``."""
     key = (source, tuple(defines))
-    if key in _LOADED:
-        return _LOADED[key]
+    with _LOCK:
+        if key not in _LOADED:
+            _LOADED[key] = _compile(source, key[1])
+    return _LOADED[key]
+
+
+def _compile(source: str, defines: Tuple[str, ...]) -> Tuple[ctypes.CDLL, str]:
     src = CSRC / source
-    digest = hashlib.sha256(src.read_bytes() + repr(key[1]).encode()
+    digest = hashlib.sha256(src.read_bytes() + repr(defines).encode()
                             ).hexdigest()[:16]
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     lib_path = BUILD_DIR / f"{src.stem}-{digest}.so"
@@ -60,5 +69,4 @@ def build(source: str, defines: Tuple[str, ...] = ()) -> Tuple[ctypes.CDLL, str]
         log_path.write_text(proc.stderr)
         os.replace(tmp, lib_path)
     report = log_path.read_text() if log_path.exists() else ""
-    _LOADED[key] = (ctypes.CDLL(str(lib_path)), report)
-    return _LOADED[key]
+    return ctypes.CDLL(str(lib_path)), report

@@ -30,6 +30,7 @@ Each form counts its own launches: :data:`SAMPLER` (one-shot),
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -149,6 +150,7 @@ class WaveNetSampler:
 
     def __init__(self, stamps: bool = False):
         self.launches = 0
+        self._count_lock = threading.Lock()   # a server launches from threads
         self._defines = ("WAVENET_STAMPS",) if stamps else ()
         self._lib = None
 
@@ -272,7 +274,8 @@ class WaveNetSampler:
                 seed & 0xFFFFFFFFFFFFFFFF, stream)
         if rc != 0:
             raise RuntimeError(f"wavenet_sample launch failed: CUDA error {rc}")
-        self.launches += 1
+        with self._count_lock:
+            self.launches += 1
         return codes
 
 

@@ -3,7 +3,8 @@
 Port of the inference subset of ``nspeech_tpu/ops/layers.py``. Parameters
 keep the JAX package's names, shapes and layouts (a dense kernel is
 [in, out], a conv kernel [width, in, out], an LSTM kernel one [x, h] ->
-4*units matrix with gates in (i, g, f, o) order), so bridged weights are
+4*units matrix with gates in (i, g, f, o) order, a GRU TF's gate and
+candidate kernels), so bridged weights are
 used as they are. Initializers draw from a ``numpy.random.Generator``
 with the same distributions as the JAX package (glorot-uniform kernels,
 truncated-normal embeddings).
@@ -87,6 +88,26 @@ def init_lstm(rng, in_dim: int, units: int) -> Params:
             "bias": torch.zeros(4 * units)}
 
 
+def init_highway(rng, dim: int) -> Params:
+    """Highway layer: transform ``H`` and gate ``T`` (gate bias -1)."""
+    h = init_dense(rng, dim, dim)
+    t = init_dense(rng, dim, dim)
+    t["bias"] = torch.full((dim,), -1.0)
+    return {"H": h, "T": t}
+
+
+def init_gru(rng, in_dim: int, units: int) -> Params:
+    """TF GRUCell layout: a gate kernel over [x, h] -> 2*units (reset,
+    update) with bias 1, a candidate kernel over [x, r*h] -> units with
+    bias 0."""
+    return {"gate_kernel": glorot_uniform(rng, (in_dim + units, 2 * units),
+                                          in_dim + units, 2 * units),
+            "gate_bias": torch.ones(2 * units),
+            "cand_kernel": glorot_uniform(rng, (in_dim + units, units),
+                                          in_dim + units, units),
+            "cand_bias": torch.zeros(units)}
+
+
 def tree_to(tree, device):
     """Move every tensor of a nested dict/list tree to ``device``."""
     if isinstance(tree, dict):
@@ -147,6 +168,93 @@ def prenet(params: Params, x: torch.Tensor) -> torch.Tensor:
     return x
 
 
+def highway(params: Params, x: torch.Tensor) -> torch.Tensor:
+    h = dense(params["H"], x, torch.relu)
+    t = dense(params["T"], x, torch.sigmoid)
+    return h * t + x * (1.0 - t)
+
+
+def gru_cell(params: Params, x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    """One TF GRU step; returns the new state. The candidate reads [x, r*h]
+    through one kernel (``torch.nn.GRUCell`` computes r * (W_hn h + b_hn)
+    instead, a different function)."""
+    gates = torch.sigmoid(torch.cat([x, h], dim=-1) @ params["gate_kernel"]
+                          + params["gate_bias"])
+    r, u = torch.chunk(gates, 2, dim=-1)
+    c = torch.tanh(torch.cat([x, r * h], dim=-1) @ params["cand_kernel"]
+                   + params["cand_bias"])
+    return u * h + (1.0 - u) * c
+
+
+def _length_mask(lengths: Optional[torch.Tensor], T: int, device):
+    """[N, T, 1] bool validity mask, or None without lengths."""
+    if lengths is None:
+        return None
+    return (torch.arange(T, device=device)[None, :]
+            < lengths.to(device)[:, None])[:, :, None]
+
+
+def gru_rnn(params: Params, x: torch.Tensor, h0: Optional[torch.Tensor],
+            lengths: Optional[torch.Tensor], units: int) -> torch.Tensor:
+    """Unidirectional GRU over [N, T, C] -> [N, T, units]. Past each row's
+    length, outputs are zero and the state is held."""
+    N, T, _ = x.shape
+    h = x.new_zeros(N, units) if h0 is None else h0
+    mask = _length_mask(lengths, T, x.device)
+    outs = []
+    for t in range(T):
+        new_h = gru_cell(params, x[:, t], h)
+        out = new_h
+        if mask is not None:
+            new_h = torch.where(mask[:, t], new_h, h)
+            out = torch.where(mask[:, t], out, torch.zeros_like(out))
+        h = new_h
+        outs.append(out)
+    return torch.stack(outs, dim=1)
+
+
+def bigru_rnn(params_fw: Params, params_bw: Params, x: torch.Tensor,
+              h0: Optional[torch.Tensor], lengths: Optional[torch.Tensor],
+              units: int) -> torch.Tensor:
+    """Bidirectional GRU over [N, T, C] -> [N, T, 2*units], both directions
+    in one loop (as :func:`bilstm_rnn`). ``h0`` [N, units] (a speaker's
+    initial state) seeds both directions."""
+    N, T, C = x.shape
+    x4 = torch.cat([x, reverse_sequence(x, lengths)], dim=0).reshape(2, N, T, C)
+
+    def split(name):
+        return (torch.stack([params_fw[name][:C], params_bw[name][:C]]),
+                torch.stack([params_fw[name][C:], params_bw[name][C:]]))
+
+    gx, gh = split("gate_kernel")
+    cx, ch = split("cand_kernel")
+    gb = torch.stack([params_fw["gate_bias"], params_bw["gate_bias"]])
+    cb = torch.stack([params_fw["cand_bias"], params_bw["cand_bias"]])
+    xg = (torch.einsum("gntc,gcz->gntz", x4, gx)
+          + gb[:, None, None]).reshape(2 * N, T, 2 * units)
+    xc = (torch.einsum("gntc,gcz->gntz", x4, cx)
+          + cb[:, None, None]).reshape(2 * N, T, units)
+    mask = _length_mask(lengths, T, x.device)
+    if mask is not None:
+        mask = torch.cat([mask, mask], dim=0)                       # [2N, T, 1]
+    h = (x.new_zeros(2 * N, units) if h0 is None
+         else torch.cat([h0, h0], dim=0))
+    outs = []
+    for t in range(T):
+        hg = torch.bmm(h.reshape(2, N, units), gh).reshape(2 * N, 2 * units)
+        r, u = torch.chunk(torch.sigmoid(xg[:, t] + hg), 2, dim=-1)
+        hc = torch.bmm((r * h).reshape(2, N, units), ch).reshape(2 * N, units)
+        new_h = u * h + (1.0 - u) * torch.tanh(xc[:, t] + hc)
+        out = new_h
+        if mask is not None:
+            new_h = torch.where(mask[:, t], new_h, h)
+            out = torch.where(mask[:, t], out, torch.zeros_like(out))
+        h = new_h
+        outs.append(out)
+    ys = torch.stack(outs, dim=1)                                   # [2N, T, H]
+    return torch.cat([ys[:N], reverse_sequence(ys[N:], lengths)], dim=-1)
+
+
 def _lstm_gates(z: torch.Tensor, c: torch.Tensor, forget_bias: float):
     i, g, f, o = torch.chunk(z, 4, dim=-1)
     new_c = torch.sigmoid(f + forget_bias) * c + torch.sigmoid(i) * torch.tanh(g)
@@ -193,10 +301,9 @@ def bilstm_rnn(params_fw: Params, params_bw: Params, x: torch.Tensor,
     b = torch.stack([params_fw["bias"], params_bw["bias"]])        # [2, 4H]
     xz = (torch.einsum("gntc,gcz->gntz", x2.reshape(2, N, T, C), wx)
           + b[:, None, None]).reshape(2 * N, T, 4 * units)
-    mask = None
-    if lengths is not None:
-        m = torch.arange(T, device=x.device)[None, :] < lengths.to(x.device)[:, None]
-        mask = torch.cat([m, m], dim=0)[:, :, None]                 # [2N, T, 1]
+    mask = _length_mask(lengths, T, x.device)
+    if mask is not None:
+        mask = torch.cat([mask, mask], dim=0)                       # [2N, T, 1]
     c = x.new_zeros(2 * N, units)
     h = x.new_zeros(2 * N, units)
     outs = []

@@ -1,4 +1,4 @@
-"""End-to-end text -> waveform: Tacotron-2 mels -> WaveNet vocoder.
+"""End-to-end text -> waveform: Tacotron (1 or 2) mels -> WaveNet vocoder.
 
 Port of ``nspeech_tpu/serving/pipeline.py``. The frame-rate mel goes to the
 device and is upsampled there; the sampler is the CUDA kernel on a CUDA
@@ -108,7 +108,7 @@ class WaveNetVocoder:
 
 
 class TextToSpeech:
-    """Full pipeline: text -> (Tacotron-2) mel -> (WaveNet | Griffin-Lim) wav."""
+    """Full pipeline: text -> (Tacotron) mel -> (WaveNet | Griffin-Lim) wav."""
 
     def __init__(self, synthesizer: Synthesizer,
                  vocoder: Optional[WaveNetVocoder] = None):

@@ -9,9 +9,10 @@ the one before only as far as its exactness needs:
 
 - decoder: ``start_autoregressive`` + ``scan_autoregressive_chunk`` give
   the one-shot decode's buffers;
-- postnet: its convs see ``layers * (width // 2)`` frames to each side,
-  so a window carved from within the ``[0, max_iters * r)`` decode buffer
-  with that halo, the halo cropped off, equals the full-buffer postnet;
+- postnet (Tacotron-2; Tacotron-1's decoder frames are the mel): its
+  convs see ``layers * (width // 2)`` frames to each side, so a window
+  carved from within the ``[0, max_iters * r)`` decode buffer with that
+  halo, the halo cropped off, equals the full-buffer postnet;
 - vocoder: WaveNet is causal. The sampler resumes from its carried state
   (``CudaWaveNetGenerator.generate_chunk``: the CUDA kernel on the card,
   the plain version on the CPU), and the conditioning window is upsampled
@@ -19,8 +20,8 @@ the one before only as far as its exactness needs:
   floats of the one-shot conditioning and samples its codes.
 
 The stream is held to ``WaveNetVocoder.vocode_batch`` of its own mel
-(codes and waveform identical at the same seed) and its mel to
-``Tacotron2.forward``'s. Griffin-Lim is not streamed: its iteration is
+(codes and waveform identical at the same seed) and its mel to the
+model's ``forward``. Griffin-Lim is not streamed: its iteration is
 global over the utterance.
 """
 
@@ -91,7 +92,11 @@ class StreamingTTS:
             chunk_frames += r - chunk_frames % r
         self._temperature = float(temperature)
         self._stop = float(cfg.get("stop_threshold", 0.0))
-        self._halo = cfg.postnet_conv_layers * (cfg.postnet_conv_width // 2)
+        # the postnet's receptive field per side (Tacotron-2); Tacotron-1's
+        # decoder frames are the mel, so it needs no halo
+        self._has_postnet = hasattr(self.model, "postnet_residual")
+        self._halo = (cfg.postnet_conv_layers * (cfg.postnet_conv_width // 2)
+                      if self._has_postnet else 0)
         # The one-shot postnet input is exactly the [max_iters * r] decode
         # buffer: windows are carved from within it, so that their 0 / B
         # edges are the true boundaries where each conv's SAME padding
@@ -149,6 +154,8 @@ class StreamingTTS:
         return D.assemble_outputs(outs, self.cfg.num_mels), carry
 
     def _postnet(self, window: torch.Tensor) -> torch.Tensor:
+        if not self._has_postnet:
+            return window
         return window + self.model.postnet_residual(self._params, self._bn,
                                                     window)
 
@@ -212,7 +219,7 @@ class StreamingTTS:
         the batch runs on for the longest). The decoder, the postnet and
         the vocoder advance in lockstep for all N streams: one sampler
         launch per chunk, one 8-CTA cluster per stream on the card.
-        Speaker ids the Tacotron-2 speaker table or the vocoder's gc table
+        Speaker ids the Tacotron speaker table or the vocoder's gc table
         lacks raise :class:`ClientError` before any launch (a deliberate
         deviation from JAX, which serves NaN rows).
 

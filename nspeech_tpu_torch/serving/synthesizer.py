@@ -1,5 +1,5 @@
-"""Inference wrapper: text -> (waveform, mel, linear) with Tacotron-2 and
-Griffin-Lim. Port of ``nspeech_tpu/serving/synthesizer.py``.
+"""Inference wrapper: text -> (waveform, mel, linear) with a Tacotron
+(1 or 2) and Griffin-Lim. Port of ``nspeech_tpu/serving/synthesizer.py``.
 
 Texts are padded to a bucket of ``text_bucket`` symbols and the batch to a
 power of two, with padding rows of length 0 (finished from the first
@@ -18,7 +18,6 @@ from nspeech_tpu_torch.config import Config
 from nspeech_tpu_torch import dsp
 from nspeech_tpu_torch.data.feeder import round_up
 from nspeech_tpu_torch.models import create_model
-from nspeech_tpu_torch.models.tacotron2 import Tacotron2
 from nspeech_tpu_torch.ops import threefry
 from nspeech_tpu_torch.ops.layers import tree_to
 from nspeech_tpu_torch.serving.errors import check_ids
@@ -72,11 +71,15 @@ class Synthesizer:
 
     def set_variables(self, params, bn_state, model=None) -> "Synthesizer":
         """Use the port's (or bridged, see ``convert``) parameters; they
-        are moved to this synthesizer's device."""
+        are moved to this synthesizer's device. ``model`` is a model or a
+        model name (``"taco1"``, ``"taco2"``); pass it when :meth:`load`
+        was not called."""
+        if isinstance(model, str):
+            model = create_model(model, self.cfg)
         if model is not None:
             self.model = model
         if self.model is None:
-            self.model = Tacotron2(self.cfg)
+            raise ValueError("No model: pass model= or call load() first")
         self._params = tree_to(params, self.device)
         self._bn_state = tree_to(bn_state, self.device)
         return self

@@ -6,7 +6,7 @@ Layout of a checkpoint directory::
     <dir>/serving/<step>.npz     the serving parameters of training step <step>
 
 The archive holds the JAX package's parameter tree (``params/...``) and,
-for Tacotron-2, its batch-norm state (``bn_state/...``); each key is the
+for a Tacotron, its batch-norm state (``bn_state/...``); each key is the
 ``/``-joined path of a leaf (list items by index), each value a float32
 array. The serving parameters are the EMA average when the run kept one,
 as the JAX package's ``load_serving_params`` chooses. The tree is the same
@@ -26,7 +26,7 @@ import torch
 
 from nspeech_tpu_torch import convert
 from nspeech_tpu_torch.config import Config
-from nspeech_tpu_torch.models import Tacotron2, WaveNet
+from nspeech_tpu_torch.models import Tacotron1, Tacotron2, WaveNet
 from nspeech_tpu_torch.train.metadata import save_run_metadata
 
 SERVING_DIR = "serving"
@@ -105,7 +105,7 @@ def _serving_steps(ckpt_dir: str) -> list:
 
 def load_serving_params(ckpt_dir: str, model, step: Optional[int] = None,
                         device="cpu") -> Tuple[Any, Optional[Any]]:
-    """``(params, bn_state)`` of ``model`` (a ``WaveNet`` or ``Tacotron2``;
+    """``(params, bn_state)`` of ``model`` (a ``WaveNet`` or a Tacotron;
     ``bn_state`` None for WaveNet) from ``serving/<step>.npz``, the latest
     step by default, on ``device``. Raises on a missing, extra or
     misshapen leaf (checked against the model's own tree)."""
@@ -128,7 +128,7 @@ def load_serving_params(ckpt_dir: str, model, step: Optional[int] = None,
         if any(k.startswith("bn_state/") for k in flat):
             raise ValueError(f"{path}: a WaveNet has no bn_state")
         return convert.wavenet_params(model, params, device), None
-    if isinstance(model, Tacotron2):
-        return convert.tacotron2_variables(model, params,
-                                           _unflatten(flat, "bn_state"), device)
+    if isinstance(model, (Tacotron1, Tacotron2)):
+        return convert.tacotron_variables(model, params,
+                                          _unflatten(flat, "bn_state"), device)
     raise TypeError(f"no serving checkpoint for {type(model).__name__}")

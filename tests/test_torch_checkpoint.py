@@ -1,9 +1,9 @@
 """The port's run metadata and serving checkpoint, and the exporter that
 turns a JAX (Orbax) checkpoint into one (``scripts/export_torch_checkpoint.py``).
 
-The metadata tests mirror ``tests/test_metadata.py`` on the port's models
-(Tacotron-1 is not ported: its checkpoints raise). Checkpoint round trips
-are exact (float32 arrays written and read back)."""
+The metadata tests mirror ``tests/test_metadata.py`` on the port's models.
+Checkpoint round trips are exact (float32 arrays written and read back);
+exported Tacotron-1 and Tacotron-2 runs load into the port's Synthesizer."""
 
 import importlib.util
 import json
@@ -101,11 +101,44 @@ def test_config_from_checkpoint_precedence(tmp_path):
 
 
 def test_taco1_checkpoint_is_not_ported(tmp_path):
+    """A Tacotron-1 run's metadata now resolves to the port's taco1
+    config; metadata without a serving archive is not a checkpoint the
+    port can load, and a model the port lacks is refused by name."""
     j_save_meta(str(tmp_path), "taco1", j_load("taco1"))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        config_from_checkpoint(str(tmp_path))
-    with pytest.raises(NotImplementedError, match="item 11"):
+    cfg, name = config_from_checkpoint(str(tmp_path))
+    assert name == "taco1" and cfg.values() == j_load("taco1").values()
+    with pytest.raises(FileNotFoundError, match="no serving checkpoint"):
         Synthesizer.from_checkpoint(str(tmp_path), device="cpu")
+    with pytest.raises(ValueError, match="Unknown model: taco3"):
+        config_from_checkpoint(str(tmp_path), model_name="taco3")
+
+
+@pytest.mark.parametrize("extra", ["", ",num_speakers=3"])
+def test_export_taco1_serves_in_the_port(tmp_path, extra):
+    """An Orbax Tacotron-1 checkpoint exported by the script loads into
+    the port's Synthesizer (every leaf consumed, batch-norm state kept)
+    and equals the bridged JAX trees."""
+    jcfg = j_load("taco1").parse("max_iters=3,encoder_cbhg_banks=2,"
+                                 "post_cbhg_banks=2,attention_dim=16,"
+                                 "decoder_dim=16,embedding_dim=16" + extra)
+    model = j_create("taco1", jcfg)
+    tx, _ = make_optimizer(jcfg, "taco1")
+    state = create_state(model, tx, jax.random.PRNGKey(0))
+    ckpt = str(tmp_path / "ckpt")
+    mgr = CheckpointManager(ckpt)
+    mgr.save(2, state)
+    mgr.wait()
+    mgr.close()
+    j_save_meta(ckpt, "taco1", jcfg)
+    exporter().export(ckpt, str(tmp_path / "port"))
+    syn = Synthesizer.from_checkpoint(str(tmp_path / "port"), device="cpu")
+    assert syn.model.name == "taco1" and syn.cfg.decoder_dim == 16
+    want = convert.tacotron_variables(
+        syn.model, jax.tree_util.tree_map(np.asarray, state.params),
+        jax.tree_util.tree_map(np.asarray, state.bn_state))
+    assert same_trees((syn._params, syn._bn_state), want)
+    wav, mel, lin = syn.synthesize("taco one", 1 if extra else -1)
+    assert mel.shape == (15, 80) and lin.shape == (15, 1025) and wav.size > 0
 
 
 def test_serving_checkpoint_roundtrip(tmp_path):

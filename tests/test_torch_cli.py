@@ -8,7 +8,7 @@ same flags. The port encodes the seed wav with XLA's arithmetic and
 decodes with the same ``powf`` table, so the wav files must hold the same
 int16 samples (the streamed files the same bytes).
 
-``cli.synthesize`` against the port's own ``TextToSpeech`` built from the
+``cli.synthesize`` (and ``--long``) against the port's own ``TextToSpeech`` built from the
 same weights with ``set_variables``: the same samples; and against the
 JAX package's ``synthesize.py --platform cpu`` from one exported pair of
 checkpoints (Tacotron-2, and a mel-conditioned vocoder at temperature 0):
@@ -18,7 +18,11 @@ rounding, which the pipeline parity test bounds by 1e-4 of the peak (3.3
 of full scale) plus one for the int16 rounding.
 
 The ``simple_wavenet`` preset (no conditioning, M = 0) through both
-generation CLIs, held to the JAX CLI's int16 samples."""
+generation CLIs, held to the JAX CLI's int16 samples. An exported
+Tacotron-1 run through both synthesize CLIs; ``--long`` on Griffin-Lim
+against ``synthesize.py --long``; ``cli.eval`` against ``eval.py`` (file
+names and wav lengths; the port's PNGs decoded with ``zlib``); and the
+refusals of what is not ported (multi-GPU, exported artifacts)."""
 
 import importlib.util
 import os
@@ -180,13 +184,45 @@ def test_synthesize_cli_matches_text_to_speech(tts_ckpts, tmp_path, vocoder,
     np.testing.assert_array_equal(got, wavfile.read(str(tmp_path / "ref.wav"))[1])
 
 
-@pytest.mark.parametrize("flag,item", [("--long", "item 10"),
-                                       ("--data-parallel", "item 15")])
+@pytest.mark.parametrize("flag,item", [("--data-parallel", "item 5")])
 def test_synthesize_cli_refusals(tts_ckpts, flag, item):
     d, _, _ = tts_ckpts
     with pytest.raises(SystemExit, match=item):
         port_synth.main(["--checkpoint", str(d / "taco"), "--text", "hi",
                          "--device", "cpu", flag])
+
+
+@pytest.mark.parametrize("argv,item", [
+    (["--artifact", "exported"], "item 6"),
+    (["--checkpoint", "unused", "--data-parallel"], "item 5")])
+def test_demo_server_refusals(argv, item):
+    from nspeech_tpu_torch.cli import demo_server
+
+    with pytest.raises(SystemExit, match=item):
+        demo_server.main(argv + ["--device", "cpu"])
+
+
+LONG_TEXT = ("Long form speech. It splits at sentences, then clauses, "
+             "and joins the pieces with pauses!")
+
+
+def test_synthesize_long_cli_matches_text_to_speech(tts_ckpts, tmp_path):
+    """--long through the vocoder: the samples of synthesize_long over the
+    same TextToSpeech (one batch of pieces, the vocoder at temperature 1,
+    the port's Philox noise on both sides)."""
+    from nspeech_tpu_torch.serving import synthesize_long
+
+    d, syn, voc = tts_ckpts
+    port_synth.main(["--checkpoint", str(d / "taco"), "--vocoder-checkpoint",
+                     str(d / "voc"), "--text", LONG_TEXT, "--long",
+                     "--pause-ms", "80", "--max-chars", "40", "--device", "cpu",
+                     "--out", str(tmp_path / "cli.wav")])
+    wav = synthesize_long(TextToSpeech(syn, voc), LONG_TEXT, pause_ms=80,
+                          max_chars=40)
+    save_wav(wav, str(tmp_path / "ref.wav"), syn.cfg.sample_rate)
+    got = wavfile.read(str(tmp_path / "cli.wav"))[1]
+    assert got.size > 0
+    np.testing.assert_array_equal(got, wavfile.read(str(tmp_path / "ref.wav"))[1])
 
 
 @pytest.fixture(scope="module")
@@ -253,6 +289,143 @@ def test_synthesize_cli_matches_jax_cli(jax_tts_ckpts, tmp_path, monkeypatch,
     assert sr_j == sr_t and a.dtype == b.dtype == np.int16
     assert a.shape == b.shape and a.size > 0
     assert np.abs(a.astype(np.int32) - b.astype(np.int32)).max() <= 4
+
+
+@pytest.mark.parametrize("flags", [[], ["--long", "--pause-ms", "80",
+                                          "--max-chars", "40"]])
+def test_synthesize_long_cli_matches_jax_cli(jax_tts_ckpts, tmp_path,
+                                             monkeypatch, flags):
+    """``--long`` (and the plain route) on Griffin-Lim from one exported
+    run: the JAX CLI's pieces, pauses and endpoints, so the same length,
+    int16 within 4."""
+    d = jax_tts_ckpts
+    common = ["--text", LONG_TEXT] + flags
+    monkeypatch.setenv("NSPEECH_NO_COMPILE_CACHE", "1")
+    monkeypatch.setattr(sys, "argv", [
+        "synthesize.py", "--platform", "cpu", "--out", str(tmp_path / "jax.wav"),
+        "--checkpoint", str(d / "taco" / "ckpt")] + common)
+    jax_synth.main()
+    port_synth.main(["--checkpoint", str(d / "taco" / "port"), "--device", "cpu",
+                     "--out", str(tmp_path / "port.wav")] + common)
+    a, b = (wavfile.read(str(tmp_path / f"{n}.wav"))[1] for n in ("jax", "port"))
+    assert a.shape == b.shape and a.size > 0
+    assert np.abs(a.astype(np.int32) - b.astype(np.int32)).max() <= 4
+
+
+TACO1 = ("max_iters=4,encoder_cbhg_banks=2,post_cbhg_banks=2,attention_dim=16,"
+         "decoder_dim=16,embedding_dim=16,griffin_lim_iters=2")
+
+
+@pytest.mark.parametrize("vocoder", [False, True])
+def test_taco1_synthesize_cli_matches_jax_cli(jax_tts_ckpts, tmp_path,
+                                              monkeypatch, vocoder):
+    """An exported Tacotron-1 run serves through the port's synthesize
+    CLI as through ``synthesize.py``: same length, int16 within 4 (with a
+    vocoder: identical codes at temperature 0)."""
+    d = jax_tts_ckpts
+    if not (d / "taco1" / "port").exists():
+        (d / "taco1").mkdir(exist_ok=True)
+        export_jax_checkpoint(d / "taco1", "taco1", j_load("taco1").parse(TACO1))
+    common = ["--text", "Tacotron one, served.", "--temperature", "0"]
+    if vocoder:
+        jvoc = ["--vocoder-checkpoint", str(d / "voc" / "ckpt")]
+        tvoc = ["--vocoder-checkpoint", str(d / "voc" / "port")]
+    else:
+        jvoc = tvoc = []
+    monkeypatch.setenv("NSPEECH_NO_COMPILE_CACHE", "1")
+    monkeypatch.setattr(sys, "argv", [
+        "synthesize.py", "--platform", "cpu", "--out", str(tmp_path / "jax.wav"),
+        "--checkpoint", str(d / "taco1" / "ckpt")] + common + jvoc)
+    jax_synth.main()
+    port_synth.main(["--checkpoint", str(d / "taco1" / "port"), "--device", "cpu",
+                     "--out", str(tmp_path / "port.wav")] + common + tvoc)
+    a, b = (wavfile.read(str(tmp_path / f"{n}.wav"))[1] for n in ("jax", "port"))
+    assert a.shape == b.shape and a.size > 0
+    assert np.abs(a.astype(np.int32) - b.astype(np.int32)).max() <= 4
+
+
+def read_png_gray8(path):
+    """The pixels of an 8-bit grayscale PNG without filters, decoded with
+    zlib."""
+    import struct
+    import zlib
+
+    data = open(path, "rb").read()
+    assert data[:8] == b"\x89PNG\r\n\x1a\n"
+    pos, chunks = 8, {}
+    while pos < len(data):
+        n, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        chunks.setdefault(kind, b"")
+        chunks[kind] += data[pos + 8:pos + 8 + n]
+        pos += 12 + n
+    w, h, depth, color = struct.unpack(">IIBB", chunks[b"IHDR"][:10])
+    assert depth == 8 and color == 0
+    rows = np.frombuffer(zlib.decompress(chunks[b"IDAT"]), np.uint8).reshape(h, w + 1)
+    assert not rows[:, 0].any()
+    return rows[:, 1:]
+
+
+def test_eval_cli_writes_what_eval_py_writes(jax_tts_ckpts, tmp_path, monkeypatch):
+    """The port's eval CLI against ``eval.py --platform cpu`` on one
+    exported run (Griffin-Lim): the same file names, wav lengths within
+    the endpoint's tolerance (equal here), and spectrogram PNGs whose
+    pixels are the port's own mel and linear, min-max scaled."""
+    import eval as jax_eval
+
+    from nspeech_tpu_torch.cli import eval as port_eval
+    from nspeech_tpu_torch.utils.plot import specgram_image
+
+    d = jax_tts_ckpts
+    monkeypatch.setenv("NSPEECH_NO_COMPILE_CACHE", "1")
+    monkeypatch.setattr(sys, "argv", [
+        "eval.py", "--platform", "cpu", "--checkpoint", str(d / "taco" / "ckpt"),
+        "--skip-harvard", "--text-bucket", "128",
+        "--output-dir", str(tmp_path / "jax")])
+    jax_eval.main()
+    port_eval.main(["--checkpoint", str(d / "taco" / "port"), "--skip-harvard",
+                    "--text-bucket", "128", "--device", "cpu",
+                    "--output-dir", str(tmp_path / "port")])
+    jnames = sorted(p.name for p in (tmp_path / "jax").iterdir())
+    tnames = sorted(p.name for p in (tmp_path / "port").iterdir())
+    assert tnames == jnames and len(tnames) == 24
+    for name in tnames:
+        if name.endswith(".wav"):
+            a = wavfile.read(str(tmp_path / "jax" / name))[1]
+            b = wavfile.read(str(tmp_path / "port" / name))[1]
+            assert a.shape == b.shape and a.size > 0
+    syn = Synthesizer.from_checkpoint(str(d / "taco" / "port"), device="cpu",
+                                      text_bucket=128)
+    _, mel, lin = syn.synthesize(port_eval.sentences[3])
+    for suffix, spec in (("-lin.png", lin), ("-mel.png", mel)):
+        pixels = read_png_gray8(str(tmp_path / "port" / f"eval-latest-3{suffix}"))
+        assert pixels.shape == (spec.shape[1], spec.shape[0])
+        np.testing.assert_array_equal(pixels, specgram_image(spec))
+
+
+def test_eval_harvard_selection_matches_eval_py(tmp_path):
+    """Harvard groups 1-3 (30 sentences, headers skipped, indices
+    stripped), read from the port's own copy of the list."""
+    import eval as jax_eval
+
+    from nspeech_tpu_torch.cli import eval as port_eval
+
+    class Stub:
+        def __init__(self):
+            self.texts = []
+
+        def synthesize(self, text, speaker_id):
+            self.texts.append(text)
+            return (np.zeros(100, np.float32), np.random.rand(4, 80),
+                    np.random.rand(4, 1025))
+
+    cfg = load_config("taco2")
+    args = type("Args", (), {"speaker": -1})()
+    j, t = Stub(), Stub()
+    jax_eval.harvard_eval(args, j, cfg, str(tmp_path / "j"))
+    port_eval.harvard_eval(args, t, cfg, str(tmp_path / "t"))
+    assert t.texts == j.texts and len(t.texts) == 30
+    assert (sorted(p.name for p in tmp_path.glob("t-*"))
+            == sorted(p.name.replace("j-", "t-", 1) for p in tmp_path.glob("j-*")))
 
 
 @pytest.mark.parametrize("argv", [

@@ -1,7 +1,9 @@
 """Card-only tests of the port (marker ``gpu``): the CUDA sampler (one-shot,
 primed and carried-state launches) against its plain PyTorch version, the
-wrapper's checks, and the one-shot and streaming serving paths on the
-card. They skip without a CUDA device.
+wrapper's checks, the one-shot and streaming serving paths on the card,
+Tacotron-1 on the card against its CPU forward (within 1e-3, TF32 off),
+and concurrent callers sharing launches through the ``DynamicBatcher``.
+They skip without a CUDA device.
 
 Unlike the other ``test_torch_*`` files this one imports no JAX, so that it
 runs where only PyTorch is installed:
@@ -319,3 +321,77 @@ def test_bad_gc_id_leaves_the_context_usable(cuda):
     torch.cuda.synchronize()
     assert wav.shape == (2, 750) and np.isfinite(wav).all()
     assert wavenet_gen.SAMPLER.launches == before + 1
+
+
+@pytest.mark.gpu
+def test_taco1_on_card_matches_cpu(cuda):
+    """Tacotron-1 (bah attention, tiny widths) on the card against its own
+    CPU forward on the same weights (TF32 off): mel and linear within
+    1e-3, the same decoder steps; then through the vocoder."""
+    from nspeech_tpu_torch.models import Tacotron1
+    from nspeech_tpu_torch.serving import Synthesizer, TextToSpeech, WaveNetVocoder
+
+    cfg = load_config("taco1").parse(
+        "max_iters=6,encoder_cbhg_banks=2,post_cbhg_banks=2,attention_dim=32,"
+        "decoder_dim=32,embedding_dim=32,griffin_lim_iters=2")
+    model = Tacotron1(cfg)
+    params, bn = model.init(0)
+    ids = torch.randint(2, 60, (2, 16), generator=torch.Generator().manual_seed(0))
+    lengths = torch.tensor([16, 9])
+    ref = model.forward(params, bn, ids, lengths)
+    got = model.forward(tree_to(params, cuda), tree_to(bn, cuda), ids.to(cuda),
+                        lengths.to(cuda))
+    for k in ("mel_outputs", "linear_outputs", "alignments"):
+        assert (got[k].cpu() - ref[k]).abs().max().item() <= 1e-3, k
+    assert torch.equal(got["decoder_steps"].cpu(), ref["decoder_steps"])
+    syn = Synthesizer(cfg, text_bucket=16).set_variables(params, bn, model=model)
+    vcfg = load_config("wavenet").parse(TINY_WN.replace("lc_channels=5", "lc_channels=80"))
+    net = WaveNet(vcfg)
+    tts = TextToSpeech(syn, WaveNetVocoder(vcfg).set_variables(net, net.init(1)))
+    before = wavenet_gen.SAMPLER.launches
+    wav, mel, _ = tts.synthesize("taco one on the card")
+    assert wavenet_gen.SAMPLER.launches == before + 1
+    assert mel.shape == (30, 80) and wav.size > 0 and np.isfinite(wav).all()
+
+
+@pytest.mark.gpu
+def test_dynamic_batcher_shares_launches(cuda):
+    """Six concurrent callers through the DynamicBatcher over a
+    TextToSpeech on the card: fewer sampler launches than requests, each
+    caller gets a finite waveform."""
+    import threading
+
+    from nspeech_tpu_torch.serving import (DynamicBatcher, Synthesizer,
+                                           TextToSpeech, WaveNetVocoder)
+
+    cfg = load_config("taco2").parse(
+        "max_iters=6,encoder_conv_layers=1,postnet_conv_layers=1,"
+        "expand_conv_layers=1,encoder_conv_channels=16,attention_dim=16,"
+        "postnet_conv_channels=16,expand_conv_channels=16,"
+        "decoder_lstm_units=16,encoder_lstm_units=8,expand_lstm_units=8,"
+        "embedding_dim=16,griffin_lim_iters=2")
+    model = Tacotron2(cfg)
+    params, bn = model.init(0)
+    syn = Synthesizer(cfg, text_bucket=16).set_variables(params, bn, model=model)
+    vcfg = load_config("wavenet").parse(TINY_WN.replace("lc_channels=5", "lc_channels=80"))
+    net = WaveNet(vcfg)
+    tts = TextToSpeech(syn, WaveNetVocoder(vcfg).set_variables(net, net.init(1)))
+    tts.synthesize("warm up")              # builds the kernel, plans cuDNN
+    batcher = DynamicBatcher(tts, max_batch=8, window_ms=100)
+    before = wavenet_gen.SAMPLER.launches
+    out = {}
+
+    def one(i):
+        out[i] = batcher.synthesize("caller number %d" % i, -1, timeout=300)
+
+    threads = [threading.Thread(target=one, args=(i,)) for i in range(6)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    batcher.close()
+    launches = wavenet_gen.SAMPLER.launches - before
+    assert sorted(out) == list(range(6))
+    assert all(np.isfinite(w).all() and w.size > 0 for w, _, _ in out.values())
+    assert launches == batcher.stats["batches"] < 6
+    assert batcher.stats["max_batch_seen"] >= 2

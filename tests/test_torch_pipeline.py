@@ -1,5 +1,5 @@
 """The port's serving path end to end against the JAX package's: text ->
-Tacotron-2 -> Griffin-Lim endpoint -> mel-conditioned WaveNet -> waveform,
+Tacotron-2 (and Tacotron-1) -> Griffin-Lim endpoint -> mel-conditioned WaveNet -> waveform,
 at tiny widths on the CPU (the port's sampler wrapper runs its plain
 version there).
 
@@ -22,7 +22,8 @@ from nspeech_tpu.serving import TextToSpeech as JTTS
 from nspeech_tpu.serving import WaveNetVocoder as JVoc
 from nspeech_tpu_torch import convert
 from nspeech_tpu_torch.config import load_config as t_load
-from nspeech_tpu_torch.models import Tacotron2, WaveNet
+from nspeech_tpu_torch.models import WaveNet
+from nspeech_tpu_torch.models import create_model as t_create
 from nspeech_tpu_torch.serving import ClientError
 from nspeech_tpu_torch.serving import Synthesizer as TSynth
 from nspeech_tpu_torch.serving import TextToSpeech as TTTS
@@ -40,14 +41,18 @@ VOC = ("dilations_length=3,dilations_depth=1,residual_channels=8,"
        "lc_channels=80,gc_channels=4,gc_category_cardinality=3")
 
 
-@pytest.fixture(scope="module")
-def pipelines():
-    jcfg, tcfg = j_load("taco2").parse(TACO), t_load("taco2").parse(TACO)
-    jmodel = create_model("taco2", jcfg)
+TACO1 = ("max_iters=4,encoder_cbhg_banks=2,post_cbhg_banks=2,attention_dim=16,"
+         "decoder_dim=16,embedding_dim=16,griffin_lim_iters=2")
+
+
+def build(name, overrides):
+    """JAX and port TextToSpeech for Tacotron ``name`` on the same weights."""
+    jcfg, tcfg = j_load(name).parse(overrides), t_load(name).parse(overrides)
+    jmodel = create_model(name, jcfg)
     jp, js = jmodel.init(jax.random.PRNGKey(0))
     jsyn = JSynth(jcfg, text_bucket=16).set_variables(jp, js, model=jmodel)
-    tmodel = Tacotron2(tcfg)
-    tp, ts = convert.tacotron2_variables(
+    tmodel = t_create(name, tcfg)
+    tp, ts = convert.tacotron_variables(
         tmodel, jax.tree_util.tree_map(np.asarray, jp),
         jax.tree_util.tree_map(np.asarray, js))
     tsyn = TSynth(tcfg, text_bucket=16, device="cpu").set_variables(
@@ -63,8 +68,17 @@ def pipelines():
     return JTTS(jsyn, jvoc), TTTS(tsyn, tvoc)
 
 
-@pytest.mark.parametrize("text,speaker", [("hi there", -1), ("Testing, one two.", 2)])
-def test_text_to_speech_matches(pipelines, text, speaker):
+@pytest.fixture(scope="module")
+def pipelines():
+    return build("taco2", TACO)
+
+
+@pytest.fixture(scope="module")
+def taco1_pipelines():
+    return build("taco1", TACO1)
+
+
+def check_text_to_speech(pipelines, text, speaker):
     jtts, ttts = pipelines
     jw, jm, jl, jgl = jtts.synthesize(text, speaker, temperature=0.0, return_gl=True)
     tw, tm, tl, tgl = ttts.synthesize(text, speaker, temperature=0.0, return_gl=True)
@@ -76,7 +90,7 @@ def test_text_to_speech_matches(pipelines, text, speaker):
     np.testing.assert_allclose(tw, jw, atol=1e-6)
 
 
-def test_text_to_speech_batch_matches(pipelines):
+def check_batch(pipelines):
     jtts, ttts = pipelines
     texts = ["a short one", "and a somewhat longer sentence", "third"]
     jws, jms, _ = jtts.synthesize_batch(texts, [0, 1, 2], temperature=0.0)
@@ -88,6 +102,23 @@ def test_text_to_speech_batch_matches(pipelines):
         np.testing.assert_allclose(tw, jw, atol=1e-6)
 
 
+def check_griffin_lim(pipelines):
+    jtts, ttts = pipelines
+    jw, _, _ = JTTS(jtts.synthesizer).synthesize("no vocoder here")
+    tw, _, _ = TTTS(ttts.synthesizer).synthesize("no vocoder here")
+    assert tw.shape == jw.shape
+    np.testing.assert_allclose(tw, jw, atol=1e-4 * max(np.abs(jw).max(), 1e-3))
+
+
+@pytest.mark.parametrize("text,speaker", [("hi there", -1), ("Testing, one two.", 2)])
+def test_text_to_speech_matches(pipelines, text, speaker):
+    check_text_to_speech(pipelines, text, speaker)
+
+
+def test_text_to_speech_batch_matches(pipelines):
+    check_batch(pipelines)
+
+
 def test_batch_rejects_mixed_speakers(pipelines):
     _, ttts = pipelines
     with pytest.raises(ClientError):
@@ -95,8 +126,19 @@ def test_batch_rejects_mixed_speakers(pipelines):
 
 
 def test_griffin_lim_route_without_vocoder(pipelines):
-    jtts, ttts = pipelines
-    jw, _, _ = JTTS(jtts.synthesizer).synthesize("no vocoder here")
-    tw, _, _ = TTTS(ttts.synthesizer).synthesize("no vocoder here")
-    assert tw.shape == jw.shape
-    np.testing.assert_allclose(tw, jw, atol=1e-4 * max(np.abs(jw).max(), 1e-3))
+    check_griffin_lim(pipelines)
+
+
+# -- the same system with Tacotron-1 (Bahdanau attention, no postnet) ---------
+
+@pytest.mark.parametrize("text,speaker", [("hi there", -1), ("Testing, one two.", 2)])
+def test_taco1_text_to_speech_matches(taco1_pipelines, text, speaker):
+    check_text_to_speech(taco1_pipelines, text, speaker)
+
+
+def test_taco1_text_to_speech_batch_matches(taco1_pipelines):
+    check_batch(taco1_pipelines)
+
+
+def test_taco1_griffin_lim_route_without_vocoder(taco1_pipelines):
+    check_griffin_lim(taco1_pipelines)

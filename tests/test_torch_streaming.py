@@ -1,7 +1,8 @@
 """The port's streaming path against the JAX package's, on the CPU at tiny
 widths: the carried-state generator (the plain version of the sampler's
 carried form), the chunked decoder, the halo'd postnet windows, the
-absolute-position upsample and ``StreamingTTS`` end to end.
+absolute-position upsample and ``StreamingTTS`` end to end (with
+Tacotron-2 and with Tacotron-1).
 
 Tolerances: codes identical at temperature 0 (argmax with the
 lowest-index tie-break on both sides) and, at temperature 1, identical
@@ -28,6 +29,7 @@ from nspeech_tpu.serving.streaming import StreamingTTS as JStream
 from nspeech_tpu_torch import convert
 from nspeech_tpu_torch.config import load_config as t_load
 from nspeech_tpu_torch.models import Tacotron2, WaveNet
+from nspeech_tpu_torch.models import create_model as t_create
 from nspeech_tpu_torch.models import decoder as TD
 from nspeech_tpu_torch.ops.cuda.wavenet_gen import CudaWaveNetGenerator
 from nspeech_tpu_torch.ops.upsample import upsample_abs, upsample_on_device
@@ -46,6 +48,9 @@ TACO = ("max_iters=6,outputs_per_step=2,encoder_conv_layers=1,"
         "expand_conv_channels=16,decoder_lstm_units=16,encoder_lstm_units=8,"
         "expand_lstm_units=8,embedding_dim=16,griffin_lim_iters=1,"
         "num_speakers=3")
+TACO1 = ("max_iters=6,outputs_per_step=2,encoder_cbhg_banks=2,post_cbhg_banks=2,"
+         "attention_dim=16,decoder_dim=16,embedding_dim=16,griffin_lim_iters=1,"
+         "num_speakers=3")
 VOC = ("dilations_length=3,dilations_depth=1,residual_channels=8,"
        "dilation_channels=8,skip_channels=16,quantization_channels=64,"
        "lc_channels=80,gc_channels=4,gc_category_cardinality=3")
@@ -229,14 +234,13 @@ def test_upsample_abs_is_sliced_upsample(s0, length):
 
 # -- (e), (f) StreamingTTS against JAX and against the port's one-shot --------
 
-@pytest.fixture(scope="module")
-def systems():
-    """JAX and port synthesizers and vocoders on the same weights."""
-    jcfg, tcfg = j_load("taco2").parse(TACO), t_load("taco2").parse(TACO)
-    jm = create_model("taco2", jcfg)
+def build_systems(name, overrides):
+    """JAX and port Tacotron ``name`` and vocoders on the same weights."""
+    jcfg, tcfg = j_load(name).parse(overrides), t_load(name).parse(overrides)
+    jm = create_model(name, jcfg)
     jp, js = jm.init(jax.random.PRNGKey(0))
-    tm = Tacotron2(tcfg)
-    tp, ts = convert.tacotron2_variables(
+    tm = t_create(name, tcfg)
+    tp, ts = convert.tacotron_variables(
         tm, jax.tree_util.tree_map(np.asarray, jp),
         jax.tree_util.tree_map(np.asarray, js))
     jvcfg, tvcfg = j_load("wavenet").parse(VOC), t_load("wavenet").parse(VOC)
@@ -246,6 +250,16 @@ def systems():
     tvp = convert.wavenet_params(tnet, jax.tree_util.tree_map(np.asarray, jvp))
     return ((jm, jp, js, jnet, jvp, jcfg, jvcfg),
             (tm, tp, ts, tnet, tvp, tcfg, tvcfg))
+
+
+@pytest.fixture(scope="module")
+def systems():
+    return build_systems("taco2", TACO)
+
+
+@pytest.fixture(scope="module")
+def taco1_systems():
+    return build_systems("taco1", TACO1)
 
 
 def stop_threshold(systems):
@@ -274,14 +288,14 @@ def stop_threshold(systems):
     raise AssertionError("no threshold separates the streams' stops")
 
 
-def make_streams(systems, extra="", temperature=0.0, growth=4):
+def make_streams(systems, extra="", temperature=0.0, growth=4, name="taco2",
+                 base=TACO):
     (jm, jp, js, jnet, jvp, jcfg, jvcfg), (tm, tp, ts, tnet, tvp, tcfg, tvcfg) = systems
-    jcfg, tcfg = (j_load("taco2").parse(TACO + extra),
-                  t_load("taco2").parse(TACO + extra))
+    jcfg, tcfg = j_load(name).parse(base + extra), t_load(name).parse(base + extra)
     jsyn = JSynth(jcfg, text_bucket=16).set_variables(jp, js, model=jm)
     jvoc = JVoc(jvcfg, use_pallas=False).set_variables(jnet, jvp)
     tsyn = TSynth(tcfg, text_bucket=16, device="cpu").set_variables(
-        tp, ts, model=Tacotron2(tcfg))
+        tp, ts, model=name)
     tvoc = TVoc(tvcfg, device="cpu").set_variables(tnet, tvp)
     kw = dict(chunk_frames=4, temperature=temperature, text_bucket=16,
               growth=growth)
@@ -290,7 +304,7 @@ def make_streams(systems, extra="", temperature=0.0, growth=4):
 
 
 def one_shot_mels(tsyn, texts, speakers):
-    """Tacotron2.forward on the stream's padded batch."""
+    """The model's forward on the stream's padded batch."""
     from nspeech_tpu_torch.text import text_to_sequence
 
     n = max(1, 1 << (len(texts) - 1).bit_length())
@@ -307,16 +321,9 @@ def one_shot_mels(tsyn, texts, speakers):
                               spk)["mel_outputs"].numpy()
 
 
-@pytest.mark.parametrize("growth,max_iters,layout", [
-    (1, 6, "prefix"), (4, 6, "prefix"), (4, 4, "windows"), (4, 3, "whole")])
-def test_stream_matches_jax_and_one_shot(systems, growth, max_iters, layout):
-    """One unconditioned stream, no early stop (runs to max_iters): the
-    same chunk boundaries and waveform as JAX's stream, its mel JAX's and
-    the port's one-shot mel, its waveform vocode_batch of its own mel.
-    The decode budget picks the postnet layout: a first-window prefix,
-    windows without it, or the whole buffer at once."""
+def check_stream(systems, growth, max_iters, layout, **model):
     jst, tst, tsyn, tvoc = make_streams(systems, f",max_iters={max_iters}",
-                                        growth=growth)
+                                        growth=growth, **model)
     assert layout == ("whole" if tst._whole_postnet else
                       "prefix" if tst._use_prefix else "windows")
     jchunks = list(jst.stream("hello world"))
@@ -333,6 +340,27 @@ def test_stream_matches_jax_and_one_shot(systems, growth, max_iters, layout):
     assert np.array_equal(wav, tvoc.vocode_batch(tst.last_mel_batch,
                                                  temperature=0.0)[0])
     assert len(tst.last_launch_to_delivery) == len(tchunks)
+
+
+@pytest.mark.parametrize("growth,max_iters,layout", [
+    (1, 6, "prefix"), (4, 6, "prefix"), (4, 4, "windows"), (4, 3, "whole")])
+def test_stream_matches_jax_and_one_shot(systems, growth, max_iters, layout):
+    """One unconditioned stream, no early stop (runs to max_iters): the
+    same chunk boundaries and waveform as JAX's stream, its mel JAX's and
+    the port's one-shot mel, its waveform vocode_batch of its own mel.
+    The decode budget picks the postnet layout: a first-window prefix,
+    windows without it, or the whole buffer at once."""
+    check_stream(systems, growth, max_iters, layout)
+
+
+@pytest.mark.parametrize("growth,max_iters,layout", [
+    (1, 6, "prefix"), (4, 6, "prefix"), (4, 3, "windows")])
+def test_taco1_stream_matches_jax_and_one_shot(taco1_systems, growth,
+                                               max_iters, layout):
+    """The same with Tacotron-1: no postnet, so no halo; its decoder
+    frames are the mel the stream vocodes."""
+    check_stream(taco1_systems, growth, max_iters, layout, name="taco1",
+                 base=TACO1)
 
 
 def test_stream_batch_matches_jax_and_one_shot(systems):
