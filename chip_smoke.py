@@ -68,10 +68,28 @@
    through the batcher, then ``/stats``. Checks every WAV, the 400 for a
    bad ``speaker_id``, ``max_batch_seen`` >= 2 for both batchers, and
    fewer sampler launches than requests (requests shared launches).
-10. Prints each form's time per sample (per step for the primed form)
+10. Trains on the card (``train_phase``): writes a synthetic
+    LJSpeech-layout corpus (TRAIN_UTTS utterances of 1-10 s, TEXT_RATE
+    characters of Harvard-sentence text per second), featurizes it into a
+    cache on the host CPU (timed), runs ``cli.train --model taco2`` at the
+    published widths (batch 32, drop_rate 0.5) for TRAIN_STEPS steps with
+    checkpoints every 2 (loss and time of each step, sec/step as the
+    median of steps 2-TRAIN_STEPS, peak memory), runs it again to resume
+    one more step, times WARM_STEPS warm steps at each padded length,
+    holds one training step on the card against the same step on the CPU
+    (4 short utterances, no dropout, ``card_vs_cpu_step``: the trainer's
+    step in float32, loss within STEP_LOSS_TOL relative, the gradient,
+    ``grad_norm``, Adam's update and the EMA within STEP_NORM_TOL in
+    2-norm, each leaf within STEP_LEAF_TOL of its largest entry; the
+    gradient in float64 within STEP_GRAD_TOL of each leaf's largest), runs
+    ``cli.synthesize`` from the trained checkpoint with the phase-5
+    vocoder (one-shot launches), and trains Tacotron-1 at its published
+    widths for 2 steps. The training path reaches no TPU kernel; only the
+    synthesis launches the sampler.
+11. Prints each form's time per sample (per step for the primed form)
     beside its bound, one ``{"kernels": [...]}`` line (one-shot, carried
     and primed records; ``launches`` summed over the paths of phases
-    5-9, each counted from 0 just before it) and, last, the
+    5-10, each counted from 0 just before it) and, last, the
     ``{"ok": true, "device": ...}`` line. Exits non-zero without a card
     or when any check fails.
 """
@@ -102,6 +120,14 @@ MAX_ITERS = 40          # decoder steps per request: 200 frames at r=5
 MEL_TOL = 1e-3          # windowed vs full-buffer postnet (float32 convs)
 TACO_TOL = 1e-3         # Tacotron-1 mels, card vs CPU forward (float32, TF32 off)
 VOCODER_HPARAMS = "lc_channels=80,gc_channels=16,gc_category_cardinality=4"
+TRAIN_UTTS = 64         # synthetic corpus of the training phase, 1-10 s each
+TEXT_RATE = 15          # its characters of text per second of audio
+TRAIN_STEPS = 4         # first training run; the resumed run adds one
+WARM_STEPS = 3          # timed steps per padded length after a warm-up step
+STEP_LOSS_TOL = 1e-4    # training loss, card vs CPU, relative
+STEP_GRAD_TOL = 1e-9    # float64 gradients, card vs CPU, of each leaf's largest entry
+STEP_NORM_TOL = 3e-3    # float32 gradient, grad_norm, update, EMA: relative 2-norm
+STEP_LEAF_TOL = 0.1     # float32 gradients, of each leaf's largest entry
 PEAK_F32_FLOPS = 67e12  # H100 SXM, float32 outside the tensor cores
 PEAK_BYTES = 3.35e12    # H100 SXM HBM3
 
@@ -1083,6 +1109,363 @@ def server_phase():
     return ok, one, carried
 
 
+def write_corpus(out_dir: str, n: int = TRAIN_UTTS, sr: int = 20000,
+                 seed: int = 11) -> str:
+    """A synthetic LJSpeech-layout corpus: ``n`` utterances of 1-10 s
+    (sines with an AM envelope and a little noise), each with a text of
+    about TEXT_RATE characters per second of audio joined from the Harvard
+    sentences."""
+    import os
+    import re
+
+    from scipy.io import wavfile
+
+    import nspeech_tpu_torch
+
+    path = os.path.join(os.path.dirname(nspeech_tpu_torch.__file__),
+                        "harvard_sentences.txt")
+    with open(path, encoding="utf-8") as f:
+        sentences = [m.group(1) for m in
+                     (re.match(r"\d+\.\d+ (.+)", line.strip()) for line in f) if m]
+    rng = np.random.default_rng(seed)
+    os.makedirs(os.path.join(out_dir, "wavs"), exist_ok=True)
+    lines, k = [], 0
+    for i in range(n):
+        dur = 1.0 + 9.0 * i / (n - 1)
+        t = np.arange(int(sr * dur)) / sr
+        freq = 120.0 + 25.0 * (i % 12)
+        wav = 0.45 * np.sin(2 * np.pi * freq * t)
+        wav += 0.18 * np.sin(2 * np.pi * 3 * freq * t)
+        wav *= 0.6 + 0.4 * np.sin(2 * np.pi * 2.0 * t)
+        wav += 0.01 * rng.standard_normal(len(t))
+        wavfile.write(os.path.join(out_dir, "wavs", "SYN%03d.wav" % i), sr,
+                      (np.clip(wav, -1, 1) * 32767).astype(np.int16))
+        text = ""
+        while len(text) < TEXT_RATE * dur:
+            text = (text + " " + sentences[k % len(sentences)]).strip()
+            k += 1
+        text = text[: int(TEXT_RATE * dur)].rstrip()
+        lines.append(f"SYN{i:03d}|{text}|{text}")
+    with open(os.path.join(out_dir, "metadata.csv"), "w", encoding="utf-8") as f:
+        f.write("\n".join(lines) + "\n")
+    return out_dir
+
+
+def random_batch(seed: int):
+    """A feeder batch of 4 with random symbol ids and random targets in
+    [0, 1): 40/33/25/12 symbols, 100/80/64/31 frames of T_out 105, zero
+    past each row's frames."""
+    from nspeech_tpu_torch.data.feeder import Batch
+
+    rng = np.random.default_rng(seed)
+    lengths, frames = np.array([40, 33, 25, 12]), np.array([100, 80, 64, 31])
+    ids = rng.integers(2, 60, (4, 40))
+    ids[np.arange(40)[None] >= lengths[:, None]] = 0
+    mel = rng.random((4, 105, 80), dtype=np.float32)
+    lin = rng.random((4, 105, 1025), dtype=np.float32)
+    mel[np.arange(105)[None] >= frames[:, None]] = 0.0
+    lin[np.arange(105)[None] >= frames[:, None]] = 0.0
+    return Batch(ids, lengths, np.zeros(4, np.int64), mel, lin,
+                 np.zeros((4, 0), np.float32))
+
+
+def leaf_gaps(ref, got) -> dict:
+    """Per leaf (dicts by path): the largest entry of ``got - ref`` over
+    the largest entry of ``ref``. A conv bias that feeds batch norm has a
+    gradient that cancels to ~0: it is measured against its conv kernel's
+    gradient."""
+    out = {}
+    for path, r in ref.items():
+        base = ref[path[:-4] + "kernel"] if path.endswith("/conv/bias") else r
+        err = (got[path].cpu().double() - r.cpu().double()).abs().max()
+        out[path] = (err / base.abs().max().clamp(min=1e-300)).item()
+    return out
+
+
+def grad_gap(ref, got) -> float:
+    """The worst leaf of ``leaf_gaps``."""
+    return max(leaf_gaps(ref, got).values())
+
+
+def to_float64(state, batch):
+    """A train state and a device batch with float64 parameters, batch
+    norm statistics and targets."""
+    from nspeech_tpu_torch.utils.tree import tree_map
+
+    return (state._replace(params=tree_map(torch.Tensor.double, state.params),
+                           bn_state=tree_map(torch.Tensor.double, state.bn_state)),
+            batch._replace(mel_targets=batch.mel_targets.double(),
+                           linear_targets=batch.linear_targets.double()))
+
+
+def rel_err(ref, got):
+    """2-norm of ``got - ref`` over the 2-norm of ``ref``: trees (dicts by
+    path) or numbers."""
+    if not isinstance(ref, dict):
+        return abs(got - ref) / abs(ref)
+    err = sum(torch.sum((got[p].cpu().double() - r.cpu().double()) ** 2)
+              for p, r in ref.items())
+    return torch.sqrt(err / sum(torch.sum(r.cpu().double() ** 2)
+                                for r in ref.values())).item()
+
+
+def card_vs_cpu_step(batch) -> dict:
+    """One Tacotron-2 training step at the published widths (no dropout,
+    an EMA of decay 0.999) from the same state on the card and on the CPU,
+    on ``batch`` (a feeder batch). Returns the readings that
+    ``step_agreement`` holds to their bounds:
+
+    - ``loss``, ``grad_norm``, ``update``, ``ema``: from
+      ``build_tacotron_train_step`` (the trainer's clip, Adam and EMA) in
+      float32: the loss, the ``grad_norm`` metric, and the 2-norms of the
+      parameters' move and of the EMA's move, each relative to the CPU's;
+    - ``grads``: the float32 gradient (``tacotron_grads``), as a whole,
+      relative to the CPU's in 2-norm;
+    - ``leaf32``: its worst leaf (``grad_gap``), reported: a relu or an
+      L1 residual whose input lies within float32 rounding of 0 passes or
+      stops its gradient on one device and not on the other, and moves
+      single entries of a few leaves by up to some 1e-2 of their largest;
+    - ``leaf64``: the worst leaf of the gradient computed in float64 on
+      both devices, where no such input is that close to 0."""
+    from nspeech_tpu_torch.config import load_config
+    from nspeech_tpu_torch.models.tacotron2 import Tacotron2
+    from nspeech_tpu_torch.train.loop import (batch_to_device,
+                                              build_tacotron_train_step,
+                                              create_state, tacotron_grads)
+    from nspeech_tpu_torch.train.optim import make_optimizer
+    from nspeech_tpu_torch.utils.tree import named_leaves
+
+    cfg = load_config("taco2").parse("drop_rate=0.0,ema_decay=0.999")
+    model = Tacotron2(cfg)
+    opt, sched = make_optimizer(cfg, "taco2")
+    step = build_tacotron_train_step(model, opt, sched, cfg.ema_decay)
+    def move(tree, old):        # 2-norm of tree - old
+        return torch.sqrt(sum(torch.sum((x - old[p]).double() ** 2)
+                              for p, x in named_leaves(tree))).item()
+
+    out = {}
+    for dev in ("cpu", "cuda"):
+        state = create_state(model, opt, 0, ema=True, device=dev)
+        data = batch_to_device(batch, dev)
+        t0 = time.perf_counter()
+        grads = dict(named_leaves(tacotron_grads(model, state, data, None)[0]))
+        new, m = step(state, data, None)
+        old = dict(named_leaves(state.params))
+        out[dev] = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                    "grads": grads,
+                    "update": move(new.params, old), "ema": move(new.ema_params, old),
+                    "s": time.perf_counter() - t0}
+        torch.set_default_dtype(torch.float64)    # the decoder's zero carries too
+        try:
+            out[dev]["grads64"] = dict(named_leaves(
+                tacotron_grads(model, *to_float64(state, data), None)[0]))
+        finally:
+            torch.set_default_dtype(torch.float32)
+    cpu, card = out["cpu"], out["cuda"]
+    r = {k: rel_err(cpu[k], card[k])
+         for k in ("loss", "grad_norm", "grads", "update", "ema")}
+    r.update(leaf32=grad_gap(cpu["grads"], card["grads"]),
+             leaf64=grad_gap(cpu["grads64"], card["grads64"]),
+             loss_cpu=cpu["loss"], loss_card=card["loss"], cpu_s=cpu["s"],
+             card_s=card["s"], T_out=batch.mel_targets.shape[1])
+    return r
+
+
+def step_agreement(r) -> tuple:
+    """(ok, line) for the readings of ``card_vs_cpu_step``."""
+    ok = (r["loss"] <= STEP_LOSS_TOL and r["leaf64"] <= STEP_GRAD_TOL
+          and max(r["grad_norm"], r["grads"], r["update"], r["ema"]) <= STEP_NORM_TOL
+          and r["leaf32"] <= STEP_LEAF_TOL)
+    return ok, (
+        f"loss {r['loss_card']:.7f} vs {r['loss_cpu']:.7f} (rel {r['loss']:.2e}, "
+        f"tol {STEP_LOSS_TOL}); float64 gradients: worst leaf {r['leaf64']:.2e} of "
+        f"its largest entry (tol {STEP_GRAD_TOL}); float32, relative in 2-norm (tol "
+        f"{STEP_NORM_TOL}): gradient {r['grads']:.2e}, grad_norm {r['grad_norm']:.2e}, "
+        f"Adam's update {r['update']:.2e}, EMA's move {r['ema']:.2e}; float32 worst "
+        f"leaf {r['leaf32']:.2e} (tol {STEP_LEAF_TOL}); step and float32 gradient "
+        f"cpu {r['cpu_s']:.2f} s, card {r['card_s']:.2f} s (first call)")
+
+
+def train_phase(tmp: str):
+    """Training on the card: the train CLI (``cli.train``, Tacotron-2 at
+    the published widths, batch 32, drop_rate 0.5) on a synthetic corpus
+    for TRAIN_STEPS steps with checkpoints every 2, a second run resumed to
+    step TRAIN_STEPS + 1, one training step on the card against the same
+    step on the CPU, ``cli.synthesize`` from the trained checkpoint through
+    the sampler (K1), and Tacotron-1 for 2 steps. Returns (ok, one-shot
+    launches)."""
+    import contextlib
+    import io
+    import os
+    import re
+    import statistics
+
+    from scipy.io import wavfile
+
+    from nspeech_tpu_torch.cli import synthesize
+    from nspeech_tpu_torch.cli import train as train_cli
+    from nspeech_tpu_torch.config import load_config
+    from nspeech_tpu_torch.data.corpus import load_items
+    from nspeech_tpu_torch.data.features import build_from_paths
+    from nspeech_tpu_torch.data.feeder import DataFeeder
+    from nspeech_tpu_torch.models.tacotron2 import Tacotron2
+    from nspeech_tpu_torch.ops.cuda import wavenet_gen
+    from nspeech_tpu_torch.train.loop import (batch_to_device,
+                                              build_tacotron_train_step,
+                                              create_state, step_generator)
+    from nspeech_tpu_torch.train.optim import make_optimizer
+
+    card = card_line()
+    ok = True
+    corpus = write_corpus(os.path.join(tmp, "corpus"))
+    cache = os.path.join(tmp, "features")
+    logs = os.path.join(tmp, "logs")
+    items = load_items({"ljspeech": corpus})
+    cfg = load_config("taco2")
+    threads = torch.get_num_threads()
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) - 1))   # as the CLI
+    t0 = time.perf_counter()
+    utts = build_from_paths([it[0] for it in items], cfg, cache)
+    feat_s = time.perf_counter() - t0
+    torch.set_num_threads(threads)
+    audio_s = sum(len(u.wav) for u in utts) / cfg.sample_rate
+    print(f"train featurize: {len(utts)} utterances, {audio_s:.1f} s of audio "
+          f"in {feat_s:.3f} s on the host CPU ({feat_s / len(utts) * 1e3:.1f} ms "
+          f"per utterance, {audio_s / feat_s:.0f} audio s per s) [{card}]")
+
+    step_times = []
+    real_build = train_cli.build_tacotron_train_step
+
+    def timed_build(*args, **kwargs):
+        step_fn = real_build(*args, **kwargs)
+
+        def timed(state, batch, generator):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step_fn(state, batch, generator)
+            torch.cuda.synchronize()
+            step_times.append((time.perf_counter() - t0,
+                               tuple(batch.mel_targets.shape),
+                               tuple(batch.inputs.shape)))
+            return out
+
+        return timed
+
+    def run_train(argv):
+        out = io.StringIO()
+        step_times.clear()
+        torch.cuda.reset_peak_memory_stats()
+        train_cli.build_tacotron_train_step = timed_build
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(out):
+                train_cli.main(argv)
+        finally:
+            train_cli.build_tacotron_train_step = real_build
+        wall = time.perf_counter() - t0
+        text = out.getvalue()
+        for line in text.splitlines():
+            if not line.startswith("  "):      # the hparams dump
+                print("  |", line)
+        losses = [float(x) for x in re.findall(r"loss=([-0-9.naninf]+),", text)]
+        return text, wall, losses, torch.cuda.max_memory_allocated()
+
+    base = ["--ljspeech", corpus, "--log-dir", logs, "--cache-dir", cache,
+            "--checkpoint-interval", "2", "--seed", "0"]
+    text, wall, losses, peak = run_train(
+        base + ["--model", "taco2", "--max-steps", str(TRAIN_STEPS)])
+    ckpt = os.path.join(logs, "taco2", "ckpt")
+    files = [os.path.join(ckpt, f) for f in
+             ("train/2.pt", f"train/{TRAIN_STEPS}.pt",
+              f"serving/{TRAIN_STEPS}.npz", "config.json")]
+    good = (len(losses) == TRAIN_STEPS and all(np.isfinite(losses))
+            and all(os.path.exists(f) for f in files))
+    ok &= good
+    for i, (sec, mel_shape, in_shape) in enumerate(step_times):
+        print(f"train taco2 step {i + 1}: {sec:.4f} s, loss {losses[i]:.5f}, "
+              f"batch {mel_shape[0]}, T_in {in_shape[1]}, T_out {mel_shape[1]} "
+              f"[{card}]")
+    sec_step = statistics.median(t for t, _, _ in step_times[1:])
+    print(f"train taco2 (published widths, batch {cfg.batch_size}): sec/step "
+          f"{sec_step:.4f} (median of steps 2-{TRAIN_STEPS}, which hold the first "
+          f"step at the second padded length), peak memory "
+          f"{peak / 2**30:.2f} GiB (max_memory_allocated), {wall:.1f} s wall "
+          f"for the run; checkpoints {'ok' if good else 'FAIL'} [{card}]")
+
+    text, wall, losses, _ = run_train(
+        base + ["--model", "taco2", "--max-steps", str(TRAIN_STEPS + 1)])
+    good = (f"Resumed from checkpoint step {TRAIN_STEPS}" in text
+            and len(losses) == 1 and np.isfinite(losses[0])
+            and os.path.exists(os.path.join(ckpt, f"train/{TRAIN_STEPS + 1}.pt")))
+    ok &= good
+    print(f"train taco2 resume: step {TRAIN_STEPS} -> {TRAIN_STEPS + 1}, loss "
+          f"{losses[0] if losses else float('nan'):.5f}, "
+          f"{step_times[0][0] if step_times else float('nan'):.4f} s for the "
+          f"step, {wall:.1f} s wall -> {'ok' if good else 'FAIL'} [{card}]")
+
+    # warm sec/step per padded length: the CLI's steps alternate two
+    # shapes, and the first step at each plans cuDNN and grows the cache
+    tcfg = load_config("taco2")
+    shapes = {}
+    for b in DataFeeder(items, tcfg, cache_dir=cache).epoch_batches(0):
+        shapes.setdefault(b.mel_targets.shape[1], batch_to_device(b, "cuda"))
+    model = Tacotron2(tcfg)
+    opt, sched = make_optimizer(tcfg, "taco2")
+    state = create_state(model, opt, 0, device="cuda")
+    step_fn = build_tacotron_train_step(model, opt, sched)
+    warm = {}
+    for t_out, data in sorted(shapes.items()):
+        for i in range(1 + WARM_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step_fn(state, data, step_generator("cuda", 0, state.step))
+            float(m["loss"])
+            if i:
+                warm.setdefault(t_out, []).append(time.perf_counter() - t0)
+    del state, shapes
+    print("train taco2 warm steps (batch 32, after one step at each shape): " + "; ".join(
+        f"T_out {t}: median {statistics.median(v):.4f} s of {len(v)} "
+        f"({', '.join(f'{x:.4f}' for x in v)})" for t, v in warm.items()) + f" [{card}]")
+
+    # one step on the card against the same step on the CPU: the 4
+    # shortest utterances, published widths, no dropout
+    scfg = load_config("taco2").parse("batch_size=4,batch_group_size=1")
+    batch = next(DataFeeder(items[:4], scfg, cache_dir=cache).epoch_batches(0))
+    good, line = step_agreement(card_vs_cpu_step(batch))
+    ok &= good
+    print(f"train step cuda vs cpu (4 utterances, T_out {batch.mel_targets.shape[1]}): "
+          f"{line} -> {'ok' if good else 'FAIL'} [{card}]")
+
+    reset_launches()
+    out_wav = os.path.join(tmp, "trained.wav")
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        synthesize.main(["--checkpoint", ckpt, "--hparams", f"max_iters={MAX_ITERS}",
+                         "--vocoder-checkpoint", os.path.join(tmp, "vocoder"),
+                         "--text", "Trained for five steps.", "--out", out_wav])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    one = wavenet_gen.SAMPLER.launches
+    sr_out, wav = wavfile.read(out_wav)
+    good = one >= 1 and wav.size > 0 and sr_out == cfg.sample_rate
+    ok &= good
+    print(f"cli synthesize from the trained taco2 (step {TRAIN_STEPS + 1}) "
+          f"through the sampler: {wall:.3f} s wall, launches one-shot {one}; "
+          f"wav {wav.size} samples -> {'ok' if good else 'FAIL'} [{card}]")
+
+    text, wall, losses, peak = run_train(
+        base + ["--model", "taco1", "--max-steps", "2"])
+    good = (len(losses) == 2 and all(np.isfinite(losses)) and os.path.exists(
+        os.path.join(logs, "taco1", "ckpt", "serving", "2.npz")))
+    ok &= good
+    times = ", ".join(f"{t:.4f} s (T_out {m[1]})" for t, m, _ in step_times)
+    print(f"train taco1 (published widths, batch {cfg.batch_size}): steps {times}, "
+          f"losses {losses}, peak memory {peak / 2**30:.2f} GiB, {wall:.1f} s "
+          f"wall -> {'ok' if good else 'FAIL'} [{card}]")
+    return ok, one
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("no CUDA device: this smoke runs on the card", file=sys.stderr)
@@ -1104,8 +1487,10 @@ def main() -> int:
     carried["launches"] += more
     with tempfile.TemporaryDirectory() as tmp:
         cli_ok, (one, primed["launches"], more) = cli_phase(tmp)
-    record["launches"] += one
-    carried["launches"] += more
+        record["launches"] += one
+        carried["launches"] += more
+        train_ok, one = train_phase(tmp)
+        record["launches"] += one
     print(f"smoke took {time.perf_counter() - start:.1f} s after the card line")
     for rec in (record, carried, primed):
         for form, ms, bound in rec.pop("per_sample"):
@@ -1113,7 +1498,8 @@ def main() -> int:
                   f"us ({ms / bound:.0f} x the bound)")
     print(json.dumps({"kernels": [record, carried, primed]}))
     if not (record["checked"] and carried["checked"] and primed["checked"]
-            and e2e_ok and stream_ok and taco1_ok and server_ok and cli_ok):
+            and e2e_ok and stream_ok and taco1_ok and server_ok and cli_ok
+            and train_ok):
         print("FAIL", file=sys.stderr)
         return 1
     print(json.dumps({"ok": True, "device": {

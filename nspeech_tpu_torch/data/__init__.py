@@ -1,1 +1,2 @@
-"""Data helpers (only the padding math serving needs, so far)."""
+"""Data: corpus loaders, per-utterance features and their cache, and the
+Tacotron data feeder."""

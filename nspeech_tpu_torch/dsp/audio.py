@@ -1,25 +1,28 @@
-"""Synthesis-side signal processing: STFT/ISTFT, Griffin-Lim, inverse
-pre-emphasis and endpointing.
+"""Signal processing: the featurizer (wav -> linear and mel spectrograms)
+and the synthesis side (STFT/ISTFT, Griffin-Lim, inverse pre-emphasis and
+endpointing).
 
-Port of the inverse path of ``nspeech_tpu/dsp/audio.py``, with the same
-conventions: periodic Hann window of ``win_length`` zero-padded centrally
-to ``n_fft``, the signal reflect-padded by ``n_fft // 2``, and the ISTFT
-overlap-add divided by ``max(squared-window envelope, 1e-10)`` (written
-out with ``index_add_`` rather than ``torch.istft``, which checks NOLA and
+Port of ``nspeech_tpu/dsp/audio.py``, with the same conventions: periodic
+Hann window of ``win_length`` zero-padded centrally to ``n_fft``, the
+signal reflect-padded by ``n_fft // 2``, and the ISTFT overlap-add divided
+by ``max(squared-window envelope, 1e-10)`` (written out with
+``index_add_`` rather than ``torch.istft``, which checks NOLA and
 normalises differently). Griffin-Lim runs the FFT form of the reference
-on a batch of spectrograms.
+on a batch of spectrograms. The featurizer (:func:`spectrograms`) is input
+pipeline work and runs on the host CPU, as the JAX package pins it there.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from nspeech_tpu_torch.config import Config, stft_params
+from nspeech_tpu_torch.dsp.mel import mel_filterbank
 
 
 def periodic_hann(win_length: int) -> np.ndarray:
@@ -32,6 +35,66 @@ def _padded_window(n_fft: int, win_length: int, device) -> torch.Tensor:
     lpad = (n_fft - win_length) // 2
     return torch.from_numpy(
         np.pad(window, (lpad, n_fft - win_length - lpad))).to(device)
+
+
+def num_frames(n_samples: int, n_fft: int, hop_length: int) -> int:
+    """Frame count for a center-padded signal of n_samples."""
+    return 1 + (n_samples + 2 * (n_fft // 2) - n_fft) // hop_length
+
+
+def preemphasis(x: np.ndarray, coef: float) -> np.ndarray:
+    """Host-side y[n] = x[n] - coef * x[n-1] in float32 (the first sample
+    passes through)."""
+    x = np.asarray(x, dtype=np.float32)
+    return np.concatenate([x[:1], x[1:] - coef * x[:-1]])
+
+
+def amp_to_db(x: torch.Tensor) -> torch.Tensor:
+    return 20.0 * torch.log10(torch.clamp(x, min=1e-5))
+
+
+def normalize(S: torch.Tensor, min_level_db: float) -> torch.Tensor:
+    return torch.clamp((S - min_level_db) / -min_level_db, 0.0, 1.0)
+
+
+def spectrograms(y, cfg: Config) -> Tuple[np.ndarray, np.ndarray]:
+    """Linear [T, num_freq] and mel [T, num_mels] spectrograms (time-major,
+    float32 numpy) of a waveform, with the reference's dB scaling and [0, 1]
+    normalization.
+
+    Runs on the host CPU by design: featurization is input-pipeline work
+    (the data feeder's prefetch thread and the feature cache), and the JAX
+    package pins it to its CPU backend for the same reason. Pre-emphasis
+    and the reflect centering by ``n_fft // 2`` (zero padding for a signal
+    no longer than that) run in numpy on the exact-length signal; then the
+    frames' ``|rfft|``, ``normalize(amp_to_db(mag) - ref_level_db)`` for
+    the linear path and ``normalize(amp_to_db(mag @ mel_basis.T))`` for the
+    mel path (no ``ref_level_db`` there), both against a floor of
+    ``-|min_level_db|``. The JAX package pads the centred signal up to a
+    16,384-sample bucket to bound its recompiles and keeps the same frames.
+    """
+    n_fft, hop_length, win_length = stft_params(cfg)
+    emph = preemphasis(y, cfg.preemphasis)
+    pad = n_fft // 2
+    mode = "reflect" if emph.shape[0] > pad else "constant"
+    frames = torch.from_numpy(np.pad(emph, (pad, pad), mode=mode)).unfold(
+        0, n_fft, hop_length)
+    window = _padded_window(n_fft, win_length, "cpu")
+    mag = torch.fft.rfft(frames * window, dim=-1).abs()
+    mel_basis = torch.from_numpy(
+        mel_filterbank(cfg.sample_rate, n_fft, cfg.num_mels))
+    floor = -abs(cfg.min_level_db)
+    linear = normalize(amp_to_db(mag) - cfg.ref_level_db, floor)
+    mel = normalize(amp_to_db(mag @ mel_basis.T), floor)
+    return linear.numpy(), mel.numpy()
+
+
+def spectrogram(y, cfg: Config) -> np.ndarray:
+    return spectrograms(y, cfg)[0]
+
+
+def melspectrogram(y, cfg: Config) -> np.ndarray:
+    return spectrograms(y, cfg)[1]
 
 
 def db_to_amp(x: torch.Tensor) -> torch.Tensor:

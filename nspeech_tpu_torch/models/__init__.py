@@ -1,4 +1,5 @@
-"""Models: Tacotron-1 and Tacotron-2 (inference) and the WaveNet vocoder.
+"""Models: Tacotron-1 and Tacotron-2 (inference and training) and the
+WaveNet vocoder.
 
 ``simple_wavenet`` is a preset of the one WaveNet class, as in the JAX
 package's registry."""

@@ -1,8 +1,12 @@
-"""Autoregressive decode with early stop for Tacotron inference.
+"""The Tacotron decoders' loops: teacher forcing for training, and the
+autoregressive decode with early stop for inference.
 
-Port of ``scan_autoregressive``, ``start_autoregressive``,
-``scan_autoregressive_chunk`` and the output assembly of
-``nspeech_tpu/models/decoder.py``. The decode is step 0
+Port of ``nspeech_tpu/models/decoder.py``: :func:`teacher_frames` and
+:func:`scan_teacher` (with scheduled sampling), the guided-attention
+penalty, ``scan_autoregressive``, ``start_autoregressive``,
+``scan_autoregressive_chunk`` and the output assembly. The teacher-forced
+loop is a Python loop over the S decoder steps, differentiated by
+autograd. The autoregressive decode is step 0
 (:func:`start_autoregressive`) followed by fixed-length chunks
 (:func:`scan_autoregressive_chunk`); the stream decodes chunk by chunk.
 The JAX package's one-shot decode runs a ``lax.while_loop`` that exits
@@ -25,6 +29,42 @@ def _device(tree) -> torch.device:
     if isinstance(tree, torch.Tensor):
         return tree.device
     return _device(next(iter(tree)))
+
+
+def teacher_frames(mel_targets: torch.Tensor, r: int) -> torch.Tensor:
+    """[N, T_out, M] -> decoder inputs [S, N, M], S = T_out / r: step s
+    reads target frame s*r - 1 (every r-th frame), step 0 a zero GO
+    frame."""
+    frames = mel_targets[:, r - 1::r, :]
+    shifted = torch.cat([torch.zeros_like(frames[:, :1]), frames[:, :-1]], dim=1)
+    return shifted.transpose(0, 1)
+
+
+def scan_teacher(step: Callable, carry0, inputs: torch.Tensor,
+                 sampling_ratio: float = 0.0,
+                 generator: Optional[torch.Generator] = None):
+    """Teacher-forced decode over ``inputs`` [S, N, M]; ``step`` is
+    ``(carry, x) -> (carry, (out [N, r*M], align [N, T_in]))``. Returns
+    (outputs [S, N, r*M], alignments [S, N, T_in]).
+
+    ``sampling_ratio`` > 0 is scheduled sampling: at each step each row
+    feeds its own previous predicted frame in place of the teacher frame
+    with that probability (a Bernoulli draw from ``generator``). The
+    fed-back frame is detached, as the JAX package's ``stop_gradient``."""
+    num_mels = inputs.shape[-1]
+    carry = carry0
+    prev = torch.zeros_like(inputs[0])   # step 0's teacher input is GO
+    outs, aligns = [], []
+    for x in inputs:
+        if sampling_ratio > 0.0:
+            use_model = torch.rand(x.shape[0], generator=generator,
+                                   device=x.device) < sampling_ratio
+            x = torch.where(use_model[:, None], prev.detach(), x)
+        carry, (out, align) = step(carry, x)
+        prev = out[:, -num_mels:]
+        outs.append(out)
+        aligns.append(align)
+    return torch.stack(outs), torch.stack(aligns)
 
 
 def _stopped(out: torch.Tensor, stop_threshold: float) -> torch.Tensor:
@@ -129,3 +169,48 @@ def assemble_outputs(outs: torch.Tensor, num_mels: int) -> torch.Tensor:
 def assemble_alignments(aligns: torch.Tensor) -> torch.Tensor:
     """[S, N, T_in] -> [N, T_in, S]."""
     return aligns.permute(1, 2, 0)
+
+
+def guided_attention_penalty(alignments: torch.Tensor,
+                             input_lengths: torch.Tensor,
+                             out_steps: torch.Tensor,
+                             sigma: float) -> torch.Tensor:
+    """Guided-attention penalty (Tachibana et al. 2017): the mean over
+    valid (input, decoder-step) cells of ``A[t, s] * (1 - exp(-(t/T -
+    s/S)^2 / (2 sigma^2)))`` for alignments [N, T_in, S]."""
+    n, t_in, s = alignments.shape
+    dev = alignments.device
+    t = torch.arange(t_in, device=dev)[None, :, None]
+    u = torch.arange(s, device=dev)[None, None, :]
+    t_norm = t / torch.clamp(input_lengths, min=1)[:, None, None]
+    s_norm = u / torch.clamp(out_steps, min=1)[:, None, None]
+    w = 1.0 - torch.exp(-((t_norm - s_norm) ** 2) / (2.0 * sigma * sigma))
+    valid = ((t < input_lengths[:, None, None])
+             & (u < out_steps[:, None, None]))
+    return torch.sum(alignments * w * valid) / torch.clamp(valid.sum(), min=1)
+
+
+def maybe_guided_attention(cfg, alignments, input_lengths, mel_targets,
+                           is_training: bool):
+    """The penalty above when training with ``guided_attention_weight`` >
+    0, else None. A row's decoder steps run to its LAST voiced target
+    frame (an interior all-zero frame does not shorten it)."""
+    if not (is_training and cfg.get("guided_attention_weight", 0.0) > 0.0):
+        return None
+    voiced = torch.any(mel_targets != 0.0, dim=-1)
+    t_out = mel_targets.shape[1]
+    frame = torch.arange(t_out, device=mel_targets.device)[None, :]
+    last = torch.max(torch.where(voiced, frame, -1), dim=-1).values
+    out_steps = torch.ceil((last + 1) / cfg.outputs_per_step).to(torch.int32)
+    return guided_attention_penalty(alignments, input_lengths, out_steps,
+                                    cfg.get("guided_attention_sigma", 0.2))
+
+
+def apply_guided_loss(cfg, outputs, loss, metrics):
+    """Add the weighted guided penalty (when the forward computed one) to
+    ``loss`` and record it in ``metrics``; shared by both Tacotrons."""
+    if "guided_attention" in outputs:
+        ga = outputs["guided_attention"]
+        loss = loss + cfg.guided_attention_weight * ga
+        metrics["loss_guided_attention"] = ga
+    return loss

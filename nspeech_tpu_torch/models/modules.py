@@ -1,6 +1,9 @@
 """Composite blocks: the CBHG (Tacotron-1), conv + BiLSTM (Tacotron-2's
-encoder and expand network) and the postnet. Port of the inference side
-of ``nspeech_tpu/models/modules.py``; batch norm uses running statistics.
+encoder and expand network) and the postnet. Port of
+``nspeech_tpu/models/modules.py``. At inference (the default) batch norm
+uses the running statistics and each block returns its output; with
+``is_training=True`` it uses the batch's moments and each block returns
+``(output, new_bn_state)``, as the JAX package's do.
 
 The CBHG keeps the reference's quirks, which define trained behaviour:
 the max-pool output is dropped (projections read the conv bank), every
@@ -58,17 +61,40 @@ def init_cbhg(rng, in_dim: int, K: int, proj_sizes: Sequence[int],
             {"K": K, "gru_units": gru_units, "in_dim": in_dim})
 
 
+def with_state(result, state, is_training: bool):
+    """A block's ``(output, new BN state)`` in either mode: at inference
+    the block returns the output alone and its state does not change."""
+    return result if is_training else (result, state)
+
+
+def _conv_bn_stack(is_training: bool):
+    """``(conv_bn, new_states)``: a conv_bn that, in training, appends
+    each layer's new BN state to ``new_states[key]`` (a dict of lists)."""
+    new_states = {}
+
+    def run(key, p, s, x, activation):
+        if not is_training:
+            return L.conv_bn(p, s, x, activation)
+        y, ns = L.conv_bn(p, s, x, activation, True)
+        new_states.setdefault(key, []).append(ns)
+        return y
+
+    return run, new_states
+
+
 def cbhg(params, state, meta, x: torch.Tensor, lengths,
-         speaker_embd: Optional[torch.Tensor]) -> torch.Tensor:
+         speaker_embd: Optional[torch.Tensor], is_training: bool = False):
     """[N, T, in_dim] -> [N, T, 2 * gru_units]."""
-    conv_bank = torch.cat([L.conv_bn(p, s, x, torch.relu)
+    conv_bn, new_state = _conv_bn_stack(is_training)
+    conv_bank = torch.cat([conv_bn("bank", p, s, x, torch.relu)
                            for p, s in zip(params["bank"], state["bank"])],
                           dim=-1)
     n_proj = len(params["proj"])
     conv_proj = conv_bank
     for i, (p, s) in enumerate(zip(params["proj"], state["proj"])):
         src = conv_bank if (i < n_proj - 1 or n_proj == 1) else conv_proj
-        conv_proj = L.conv_bn(p, s, src, torch.relu if i < n_proj - 1 else None)
+        conv_proj = conv_bn("proj", p, s, src,
+                            torch.relu if i < n_proj - 1 else None)
     h = conv_proj + x
     if "bottleneck" in params:
         h = L.dense(params["bottleneck"], h)
@@ -81,8 +107,9 @@ def cbhg(params, state, meta, x: torch.Tensor, lengths,
     h0 = None
     if speaker_embd is not None and "spk_gru" in params:
         h0 = L.dense(params["spk_gru"], speaker_embd, L.softsign)
-    return L.bigru_rnn(params["gru_fw"], params["gru_bw"], h, h0, lengths,
-                       meta["gru_units"])
+    out = L.bigru_rnn(params["gru_fw"], params["gru_bw"], h, h0, lengths,
+                      meta["gru_units"])
+    return (out, new_state) if is_training else out
 
 
 def init_conv_and_lstm(rng, in_dim: int, conv_layers: int, conv_width: int,
@@ -100,13 +127,16 @@ def init_conv_and_lstm(rng, in_dim: int, conv_layers: int, conv_width: int,
     return params, {"convs": conv_s}, {"lstm_units": lstm_units}
 
 
-def conv_and_lstm(params, state, meta, x: torch.Tensor, lengths) -> torch.Tensor:
+def conv_and_lstm(params, state, meta, x: torch.Tensor, lengths,
+                  is_training: bool = False):
     """Conv+BN stack (ReLU on all but the last conv) then a BiLSTM."""
+    conv_bn, new_state = _conv_bn_stack(is_training)
     n = len(params["convs"])
     for i, (p, s) in enumerate(zip(params["convs"], state["convs"])):
-        x = L.conv_bn(p, s, x, torch.relu if i < n - 1 else None)
-    return L.bilstm_rnn(params["lstm_fw"], params["lstm_bw"], x, lengths,
-                        meta["lstm_units"])
+        x = conv_bn("convs", p, s, x, torch.relu if i < n - 1 else None)
+    out = L.bilstm_rnn(params["lstm_fw"], params["lstm_bw"], x, lengths,
+                       meta["lstm_units"])
+    return (out, new_state) if is_training else out
 
 
 def init_postnet(rng, in_dim: int, conv_layers: int, conv_width: int,
@@ -122,11 +152,13 @@ def init_postnet(rng, in_dim: int, conv_layers: int, conv_width: int,
             {"convs": conv_s})
 
 
-def postnet(params, state, x: torch.Tensor) -> torch.Tensor:
+def postnet(params, state, x: torch.Tensor, is_training: bool = False):
     """Conv+BN stack (tanh on all but the last conv) then a dense back to
     the mel width: the residual added to the decoder frames."""
+    conv_bn, new_state = _conv_bn_stack(is_training)
     n = len(params["convs"])
     y = x
     for i, (p, s) in enumerate(zip(params["convs"], state["convs"])):
-        y = L.conv_bn(p, s, y, torch.tanh if i < n - 1 else None)
-    return L.dense(params["out"], y)
+        y = conv_bn("convs", p, s, y, torch.tanh if i < n - 1 else None)
+    out = L.dense(params["out"], y)
+    return (out, new_state) if is_training else out

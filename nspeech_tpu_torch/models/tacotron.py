@@ -1,8 +1,12 @@
-"""Tacotron-1 inference: character embedding -> encoder prenet -> encoder
-CBHG -> attention decoder (GRU attention cell, output projection, two
-residual GRUs, r frames per step) -> post-CBHG -> linear spectrogram.
+"""Tacotron-1: character embedding -> encoder prenet -> encoder CBHG ->
+attention decoder (GRU attention cell, output projection, two residual
+GRUs, r frames per step) -> post-CBHG -> linear spectrogram.
 
-Port of the eval path of ``nspeech_tpu/models/tacotron.py``. The decoder
+Port of ``nspeech_tpu/models/tacotron.py``: :meth:`Tacotron1.forward` is
+inference (autoregressive, early stop, ``torch.no_grad``);
+:meth:`Tacotron1.forward_train` is the teacher-forced forward of training
+(both prenets drop at ``drop_rate``, training-mode batch norm) and of the
+holdout loss; :func:`tacotron_loss` is both Tacotrons' loss. The decoder
 prenet reads [input frame; previous attention context] (the reference's
 composition, not the paper's). The decoder frames are the mel: there is
 no postnet, so the model has no ``postnet_residual`` and the stream needs
@@ -81,10 +85,16 @@ class Tacotron1:
         params["linear_proj"] = L.init_dense(rng, 2 * GRU_UNITS, cfg.num_freq)
         return params, state
 
-    def _make_step(self, params, keys_mem, values, mask, spk):
+    def _make_step(self, params, keys_mem, values, mask, spk,
+                   is_training: bool = False,
+                   generator: Optional[torch.Generator] = None):
+        """The decoder step ``(carry, x) -> (carry, (out, align))``. In
+        training the prenet drops at ``drop_rate`` (from ``generator``)
+        and attention is not windowed."""
         cfg = self.cfg
         att_type = cfg.attention_type
-        win_fwd = int(cfg.get("attention_win_fwd", 0))
+        drop = cfg.drop_rate if is_training else 0.0
+        win_fwd = 0 if is_training else int(cfg.get("attention_win_fwd", 0))
         win_back = int(cfg.get("attention_win_back", 1))
         spk_pre = (None if spk is None
                    else L.dense(params["spk_prenet"], spk, L.softsign))
@@ -92,7 +102,7 @@ class Tacotron1:
         def step(carry, x):
             h1, context, align, h2, h3 = carry
             pre = L.prenet(params["decoder_prenet"],
-                           torch.cat([x, context], dim=-1))
+                           torch.cat([x, context], dim=-1), drop, generator)
             if spk_pre is not None:
                 pre = torch.cat([pre, spk_pre], dim=-1)
             h1 = L.gru_cell(params["attn_gru"], pre, h1)
@@ -118,6 +128,27 @@ class Tacotron1:
 
     # -- streaming hooks ------------------------------------------------------
 
+    def _encode(self, params, state, text_inputs, input_lengths, speaker_ids,
+                is_training: bool, generator=None):
+        """``(step_ctx, encoder CBHG BN state)``; in training the encoder
+        prenet drops at ``drop_rate``."""
+        t_in = text_inputs.shape[1]
+        spk = None
+        if self.multi_speaker:
+            spk = params["speaker_embed"]["table"][speaker_ids]
+        pre = L.prenet(params["encoder_prenet"],
+                       L.embedding(params["embedding"], text_inputs),
+                       self.cfg.drop_rate if is_training else 0.0, generator)
+        enc_out, enc_state = M.with_state(
+            M.cbhg(params["encoder_cbhg"], state["encoder_cbhg"],
+                   self._enc_meta, pre, input_lengths, spk, is_training),
+            state["encoder_cbhg"], is_training)
+        keys_mem = A.prepare_memory(params["attention"], enc_out)
+        # max(len, 1) keeps the softmax finite for length-0 padding rows
+        mask = (torch.arange(t_in, device=text_inputs.device)[None, :]
+                < torch.clamp(input_lengths, min=1)[:, None])
+        return (keys_mem, enc_out, mask, spk), enc_state
+
     @torch.no_grad()
     def attention_context(self, params, state, text_inputs: torch.Tensor,
                           input_lengths: torch.Tensor,
@@ -125,20 +156,9 @@ class Tacotron1:
         """Encoder side of inference: ``(step_ctx, decoder carry0)`` for
         :meth:`make_eval_step` and the decoder's chunked decode."""
         n, t_in = text_inputs.shape
-        dev = text_inputs.device
-        spk = None
-        if self.multi_speaker:
-            spk = params["speaker_embed"]["table"][speaker_ids]
-        pre = L.prenet(params["encoder_prenet"],
-                       L.embedding(params["embedding"], text_inputs))
-        enc_out = M.cbhg(params["encoder_cbhg"], state["encoder_cbhg"],
-                         self._enc_meta, pre, input_lengths, spk)
-        keys_mem = A.prepare_memory(params["attention"], enc_out)
-        # max(len, 1) keeps the softmax finite for length-0 padding rows
-        mask = (torch.arange(t_in, device=dev)[None, :]
-                < torch.clamp(input_lengths, min=1)[:, None])
-        return ((keys_mem, enc_out, mask, spk),
-                self._decoder_carry0(n, t_in, dev))
+        ctx, _ = self._encode(params, state, text_inputs, input_lengths,
+                              speaker_ids, False)
+        return ctx, self._decoder_carry0(n, t_in, text_inputs.device)
 
     def make_eval_step(self, params, step_ctx):
         """The decoder step ``(carry, x) -> (carry, (out, align))`` over
@@ -168,3 +188,62 @@ class Tacotron1:
                 "linear_outputs": L.dense(params["linear_proj"], post_out),
                 "alignments": D.assemble_alignments(aligns),
                 "decoder_steps": steps}
+
+    def forward_train(self, params, state, text_inputs: torch.Tensor,
+                      input_lengths: torch.Tensor,
+                      speaker_ids: Optional[torch.Tensor],
+                      mel_targets: torch.Tensor, is_training: bool = True,
+                      generator: Optional[torch.Generator] = None):
+        """Teacher-forced forward, as :meth:`Tacotron2.forward_train`:
+        returns ``(outputs, new_bn_state)``."""
+        cfg = self.cfg
+        n, t_in = text_inputs.shape
+        ctx, enc_state = self._encode(params, state, text_inputs,
+                                      input_lengths, speaker_ids, is_training,
+                                      generator)
+        step = self._make_step(params, *ctx, is_training=is_training,
+                               generator=generator)
+        ss = float(cfg.get("scheduled_sampling_ratio", 0.0)) if is_training else 0.0
+        outs, aligns = D.scan_teacher(
+            step, self._decoder_carry0(n, t_in, text_inputs.device),
+            D.teacher_frames(mel_targets, cfg.outputs_per_step), ss, generator)
+        mel_outputs = D.assemble_outputs(outs, cfg.num_mels)
+        alignments = D.assemble_alignments(aligns)
+        post_out, post_state = M.with_state(
+            M.cbhg(params["post_cbhg"], state["post_cbhg"], self._post_meta,
+                   mel_outputs, None, None, is_training),
+            state["post_cbhg"], is_training)
+        outputs = {"mel_outputs": mel_outputs,
+                   "linear_outputs": L.dense(params["linear_proj"], post_out),
+                   "alignments": alignments}
+        guided = D.maybe_guided_attention(cfg, alignments, input_lengths,
+                                          mel_targets, is_training)
+        if guided is not None:
+            outputs["guided_attention"] = guided
+        return outputs, {"encoder_cbhg": enc_state, "post_cbhg": post_state}
+
+    def loss(self, outputs, mel_targets, linear_targets):
+        """(loss, metrics) with a 3 kHz priority band."""
+        return tacotron_loss(self.cfg, outputs, mel_targets, linear_targets,
+                             priority_hz=3000)
+
+
+def tacotron_loss(cfg, outputs, mel_targets, linear_targets, priority_hz):
+    """``(loss, metrics)``: mean L1 of the mel plus half the mean L1 of the
+    linear spectrogram and half that over its bins below ``priority_hz``
+    (means over the padded frames too), plus the weighted guided-attention
+    penalty when the forward computed one. Metrics: ``loss``,
+    ``loss_mel``, ``loss_linear``, ``attention_sharpness`` (the mean peak
+    alignment weight per decoder step; collapsed attention drops it toward
+    1/T_in) and ``loss_guided_attention`` when on."""
+    mel_loss = torch.mean(torch.abs(mel_targets - outputs["mel_outputs"]))
+    l1 = torch.abs(linear_targets - outputs["linear_outputs"])
+    n_priority = int(priority_hz / (cfg.sample_rate * 0.5) * cfg.num_freq)
+    linear_loss = 0.5 * torch.mean(l1) + 0.5 * torch.mean(l1[:, :, :n_priority])
+    loss = mel_loss + linear_loss
+    metrics = {"loss_mel": mel_loss, "loss_linear": linear_loss,
+               "attention_sharpness": torch.mean(
+                   torch.max(outputs["alignments"], dim=1).values)}
+    loss = D.apply_guided_loss(cfg, outputs, loss, metrics)
+    metrics["loss"] = loss
+    return loss, metrics

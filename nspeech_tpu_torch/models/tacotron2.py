@@ -1,14 +1,18 @@
-"""Tacotron-2 inference: conv+BiLSTM encoder, location-sensitive attention,
-LSTM decoder with early stop, postnet residual, conv+BiLSTM expand network
-to linear spectra.
+"""Tacotron-2: conv+BiLSTM encoder, location-sensitive attention, LSTM
+decoder, postnet residual, conv+BiLSTM expand network to linear spectra.
 
-Port of the eval path of ``nspeech_tpu/models/tacotron2.py``. The decoder
-step is prenet -> attention LSTM -> location-sensitive attention -> 2 LSTMs
--> r-frame projection, run by :func:`decoder.scan_autoregressive`. The
-streaming hooks (:meth:`Tacotron2.attention_context`,
-:meth:`Tacotron2.make_eval_step`, :meth:`Tacotron2.postnet_residual`) are
-the pieces :meth:`Tacotron2.forward` is built from, so the one-shot path
-and the stream share one encoder, one decoder step and one postnet.
+Port of ``nspeech_tpu/models/tacotron2.py``. The decoder step is prenet ->
+attention LSTM -> location-sensitive attention -> 2 LSTMs -> r-frame
+projection. :meth:`Tacotron2.forward` is inference: the decode runs by
+:func:`decoder.scan_autoregressive` with early stop, under
+``torch.no_grad``. :meth:`Tacotron2.forward_train` is the teacher-forced
+forward of training (prenet dropout, training-mode batch norm, scheduled
+sampling, guided attention) and of the holdout loss, and
+:meth:`Tacotron2.loss` its loss. The streaming hooks
+(:meth:`Tacotron2.attention_context`, :meth:`Tacotron2.make_eval_step`,
+:meth:`Tacotron2.postnet_residual`) are the pieces :meth:`forward` is
+built from, so the one-shot path and the stream share one encoder, one
+decoder step and one postnet.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ from nspeech_tpu_torch.config import Config
 from nspeech_tpu_torch.models import attention as A
 from nspeech_tpu_torch.models import decoder as D
 from nspeech_tpu_torch.models import modules as M
+from nspeech_tpu_torch.models.tacotron import tacotron_loss
 from nspeech_tpu_torch.ops import layers as L
 from nspeech_tpu_torch.text.symbols import symbols
 
@@ -80,9 +85,15 @@ class Tacotron2:
                                              cfg.num_freq)
         return params, state
 
-    def _make_step(self, params, keys_mem, values, mask, spk):
+    def _make_step(self, params, keys_mem, values, mask, spk,
+                   is_training: bool = False,
+                   generator: Optional[torch.Generator] = None):
+        """The decoder step ``(carry, x) -> (carry, (out, align))``. In
+        training the prenet drops at ``drop_rate`` (from ``generator``)
+        and attention is not windowed."""
         cfg = self.cfg
-        win_fwd = int(cfg.get("attention_win_fwd", 0))
+        drop = cfg.drop_rate if is_training else 0.0
+        win_fwd = 0 if is_training else int(cfg.get("attention_win_fwd", 0))
         win_back = int(cfg.get("attention_win_back", 1))
         spk_pre = (None if spk is None
                    else L.dense(params["spk_prenet"], spk, L.softsign))
@@ -90,7 +101,7 @@ class Tacotron2:
         def step(carry, x):
             (c1, h1), context, align, (c2, h2), (c3, h3) = carry
             pre = L.prenet(params["decoder_prenet"],
-                           torch.cat([x, context], dim=-1))
+                           torch.cat([x, context], dim=-1), drop, generator)
             if spk_pre is not None:
                 pre = torch.cat([pre, spk_pre], dim=-1)
             out1, (c1, h1) = L.lstm_cell(params["attn_lstm"], pre, (c1, h1))
@@ -121,6 +132,25 @@ class Tacotron2:
 
     # -- streaming hooks ------------------------------------------------------
 
+    def _encode(self, params, state, text_inputs, input_lengths, speaker_ids,
+                is_training: bool):
+        """``(step_ctx, encoder BN state)``: the attention keys, memory,
+        mask and speaker embedding the decoder step reads."""
+        t_in = text_inputs.shape[1]
+        embedded = L.embedding(params["embedding"], text_inputs)
+        spk = None
+        if self.multi_speaker:
+            spk = params["speaker_embed"]["table"][speaker_ids]
+        enc_out, enc_state = M.with_state(
+            M.conv_and_lstm(params["encoder"], state["encoder"], self._enc_meta,
+                            embedded, input_lengths, is_training),
+            state["encoder"], is_training)
+        keys_mem = A.prepare_memory(params["attention"], enc_out)
+        # max(len, 1) keeps the softmax finite for length-0 padding rows
+        mask = (torch.arange(t_in, device=text_inputs.device)[None, :]
+                < torch.clamp(input_lengths, min=1)[:, None])
+        return (keys_mem, enc_out, mask, spk), enc_state
+
     @torch.no_grad()
     def attention_context(self, params, state, text_inputs: torch.Tensor,
                           input_lengths: torch.Tensor,
@@ -128,19 +158,9 @@ class Tacotron2:
         """Encoder side of inference: ``(step_ctx, decoder carry0)`` for
         :meth:`make_eval_step` and the decoder's chunked decode."""
         n, t_in = text_inputs.shape
-        dev = text_inputs.device
-        embedded = L.embedding(params["embedding"], text_inputs)
-        spk = None
-        if self.multi_speaker:
-            spk = params["speaker_embed"]["table"][speaker_ids]
-        enc_out = M.conv_and_lstm(params["encoder"], state["encoder"],
-                                  self._enc_meta, embedded, input_lengths)
-        keys_mem = A.prepare_memory(params["attention"], enc_out)
-        # max(len, 1) keeps the softmax finite for length-0 padding rows
-        mask = (torch.arange(t_in, device=dev)[None, :]
-                < torch.clamp(input_lengths, min=1)[:, None])
-        return ((keys_mem, enc_out, mask, spk),
-                self._decoder_carry0(n, t_in, dev))
+        ctx, _ = self._encode(params, state, text_inputs, input_lengths,
+                              speaker_ids, False)
+        return ctx, self._decoder_carry0(n, t_in, text_inputs.device)
 
     def make_eval_step(self, params, step_ctx):
         """The decoder step ``(carry, x) -> (carry, (out, align))`` over
@@ -178,3 +198,51 @@ class Tacotron2:
                 "linear_outputs": L.dense(params["linear_proj"], expand_out),
                 "alignments": D.assemble_alignments(aligns),
                 "decoder_steps": steps}
+
+    def forward_train(self, params, state, text_inputs: torch.Tensor,
+                      input_lengths: torch.Tensor,
+                      speaker_ids: Optional[torch.Tensor],
+                      mel_targets: torch.Tensor, is_training: bool = True,
+                      generator: Optional[torch.Generator] = None):
+        """Teacher-forced forward (``is_training`` and ``mel_targets`` of
+        the JAX package's ``forward``): returns ``(outputs, new_bn_state)``
+        with mel_outputs [N, T_out, M], linear_outputs [N, T_out, F],
+        alignments [N, T_in, S] and, when the penalty is on,
+        guided_attention. In training, dropout and scheduled sampling draw
+        from ``generator``; with ``is_training=False`` (the holdout loss,
+        the training previews) batch norm reads its running statistics."""
+        cfg = self.cfg
+        n, t_in = text_inputs.shape
+        ctx, enc_state = self._encode(params, state, text_inputs,
+                                      input_lengths, speaker_ids, is_training)
+        step = self._make_step(params, *ctx, is_training=is_training,
+                               generator=generator)
+        ss = float(cfg.get("scheduled_sampling_ratio", 0.0)) if is_training else 0.0
+        outs, aligns = D.scan_teacher(
+            step, self._decoder_carry0(n, t_in, text_inputs.device),
+            D.teacher_frames(mel_targets, cfg.outputs_per_step), ss, generator)
+        decoder_out = D.assemble_outputs(outs, cfg.num_mels)
+        alignments = D.assemble_alignments(aligns)
+        residual, post_state = M.with_state(
+            M.postnet(params["postnet"], state["postnet"], decoder_out,
+                      is_training), state["postnet"], is_training)
+        mel_outputs = decoder_out + residual
+        expand_out, expand_state = M.with_state(
+            M.conv_and_lstm(params["expand"], state["expand"],
+                            self._expand_meta, mel_outputs, None, is_training),
+            state["expand"], is_training)
+        outputs = {"mel_outputs": mel_outputs,
+                   "linear_outputs": L.dense(params["linear_proj"], expand_out),
+                   "alignments": alignments}
+        guided = D.maybe_guided_attention(cfg, alignments, input_lengths,
+                                          mel_targets, is_training)
+        if guided is not None:
+            outputs["guided_attention"] = guided
+        return outputs, {"encoder": enc_state, "postnet": post_state,
+                         "expand": expand_state}
+
+    def loss(self, outputs, mel_targets, linear_targets):
+        """(loss, metrics): mel L1 plus the linear L1 with a 2 kHz priority
+        band (see :func:`tacotron.tacotron_loss`)."""
+        return tacotron_loss(self.cfg, outputs, mel_targets, linear_targets,
+                             priority_hz=2000)

@@ -1,13 +1,15 @@
-"""Neural-net building blocks as functions over parameter dicts (inference).
+"""Neural-net building blocks as functions over parameter dicts.
 
-Port of the inference subset of ``nspeech_tpu/ops/layers.py``. Parameters
-keep the JAX package's names, shapes and layouts (a dense kernel is
-[in, out], a conv kernel [width, in, out], an LSTM kernel one [x, h] ->
-4*units matrix with gates in (i, g, f, o) order, a GRU TF's gate and
-candidate kernels), so bridged weights are
-used as they are. Initializers draw from a ``numpy.random.Generator``
-with the same distributions as the JAX package (glorot-uniform kernels,
-truncated-normal embeddings).
+Port of ``nspeech_tpu/ops/layers.py``. Parameters keep the JAX package's
+names, shapes and layouts (a dense kernel is [in, out], a conv kernel
+[width, in, out], an LSTM kernel one [x, h] -> 4*units matrix with gates
+in (i, g, f, o) order, a GRU TF's gate and candidate kernels), so bridged
+weights are used as they are. Initializers draw from a
+``numpy.random.Generator`` with the same distributions as the JAX package
+(glorot-uniform kernels, truncated-normal embeddings). Batch norm and the
+prenet have a training mode (batch moments and their running update;
+inverted dropout from a ``torch.Generator``); without it they are the
+inference functions.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import torch.nn.functional as F
 
 Params = Dict[str, object]
 
+BN_MOMENTUM = 0.99
 BN_EPS = 1e-3
 
 
@@ -146,25 +149,51 @@ def conv1d(params: Params, x: torch.Tensor) -> torch.Tensor:
     return y.transpose(1, 2)
 
 
-def batch_norm(params: Params, state: Params, x: torch.Tensor) -> torch.Tensor:
-    """Inference batch norm over the last axis with running statistics."""
-    inv = torch.rsqrt(state["var"] + BN_EPS) * params["scale"]
-    return (x - state["mean"]) * inv + params["offset"]
+def batch_norm(params: Params, state: Params, x: torch.Tensor,
+               is_training: bool = False):
+    """Batch norm over the last axis. At inference: the running
+    statistics, returns y. In training (``is_training=True``): the moments
+    of ``x`` over all leading axes (padded frames included, the variance
+    the biased one, as ``jnp.var``), returns ``(y, new_state)`` with the
+    running statistics moved by momentum ``BN_MOMENTUM``."""
+    if not is_training:
+        inv = torch.rsqrt(state["var"] + BN_EPS) * params["scale"]
+        return (x - state["mean"]) * inv + params["offset"]
+    axes = tuple(range(x.ndim - 1))
+    mean = x.mean(dim=axes)
+    var = x.var(dim=axes, correction=0)
+    new_state = {
+        "mean": BN_MOMENTUM * state["mean"] + (1 - BN_MOMENTUM) * mean.detach(),
+        "var": BN_MOMENTUM * state["var"] + (1 - BN_MOMENTUM) * var.detach(),
+    }
+    inv = torch.rsqrt(var + BN_EPS) * params["scale"]
+    return (x - mean) * inv + params["offset"], new_state
 
 
-def conv_bn(params: Params, state: Params, x: torch.Tensor,
-            activation) -> torch.Tensor:
-    """conv -> activation -> batch norm (the reference's order)."""
+def conv_bn(params: Params, state: Params, x: torch.Tensor, activation,
+            is_training: bool = False):
+    """conv -> activation -> batch norm (the reference's order). Returns y
+    at inference, ``(y, {"bn": new_state})`` in training."""
     y = conv1d(params["conv"], x)
     if activation is not None:
         y = activation(y)
-    return batch_norm(params["bn"], state["bn"], y)
+    if not is_training:
+        return batch_norm(params["bn"], state["bn"], y)
+    y, bn = batch_norm(params["bn"], state["bn"], y, True)
+    return y, {"bn": bn}
 
 
-def prenet(params: Params, x: torch.Tensor) -> torch.Tensor:
-    """Stacked dense+relu (dropout is a training-time op)."""
+def prenet(params: Params, x: torch.Tensor, drop_rate: float = 0.0,
+           generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Stacked dense+relu; with ``drop_rate`` > 0 and a ``generator``,
+    inverted dropout after each layer (keep with probability
+    ``1 - drop_rate``, scale kept values by ``1 / (1 - drop_rate)``)."""
     for layer in params["layers"]:
         x = dense(layer, x, torch.relu)
+        if drop_rate > 0.0 and generator is not None:
+            keep = torch.rand(x.shape, generator=generator,
+                              device=x.device) < 1.0 - drop_rate
+            x = torch.where(keep, x / (1.0 - drop_rate), torch.zeros_like(x))
     return x
 
 

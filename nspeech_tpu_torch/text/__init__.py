@@ -1,7 +1,8 @@
-"""Text frontend: string -> symbol-id sequence.
+"""Text frontend: string -> symbol-id sequence and back.
 
-``text_to_sequence`` with curly-brace ARPAbet escapes and EOS append, as in
-the JAX package's ``nspeech_tpu/text/__init__.py``.
+``text_to_sequence`` with curly-brace ARPAbet escapes and EOS append, and
+its inverse ``sequence_to_text``, as in the JAX package's
+``nspeech_tpu/text/__init__.py``.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from nspeech_tpu_torch.text import cleaners as _cleaners_mod
 from nspeech_tpu_torch.text.symbols import EOS, PAD, symbols
 
 _symbol_to_id = {s: i for i, s in enumerate(symbols)}
+_id_to_symbol = {i: s for i, s in enumerate(symbols)}
 
 _curly_re = re.compile(r"(.*?)\{(.+?)\}(.*)")
 
@@ -31,6 +33,20 @@ def text_to_sequence(text: str, cleaner_names: List[str]) -> List[int]:
         text = m.group(3)
     sequence.append(_symbol_to_id[EOS])
     return sequence
+
+
+def sequence_to_text(sequence) -> str:
+    """Inverse of text_to_sequence; ARPAbet symbols are re-wrapped in
+    curly braces and adjacent groups merged with a space."""
+    result = ""
+    for symbol_id in sequence:
+        s = _id_to_symbol.get(int(symbol_id))
+        if s is None:
+            continue
+        if len(s) > 1 and s[0] == "@":
+            s = "{%s}" % s[1:]
+        result += s
+    return result.replace("}{", " ")
 
 
 def _clean(text: str, cleaner_names: List[str]) -> str:

@@ -1,11 +1,20 @@
-"""Checkpoints and run metadata (training itself is not ported yet)."""
+"""Training: the Tacotron train step, optimizer and schedules, the
+training loop, checkpoints (training states and serving archives) and run
+metadata. WaveNet training is not ported yet."""
 
 from nspeech_tpu_torch.train.checkpoint import (  # noqa: F401
+    CheckpointManager,
     load_serving_params,
     save_serving_checkpoint,
+)
+from nspeech_tpu_torch.train.loop import (  # noqa: F401
+    TrainState,
+    build_tacotron_train_step,
+    create_state,
 )
 from nspeech_tpu_torch.train.metadata import (  # noqa: F401
     config_from_checkpoint,
     load_run_metadata,
     save_run_metadata,
 )
+from nspeech_tpu_torch.train.optim import make_optimizer, make_schedule  # noqa: F401

@@ -1,0 +1,133 @@
+"""The Tacotron train step: port of ``nspeech_tpu/train/loop.py``.
+
+One step is the teacher-forced forward in training mode, the loss, its
+gradients by autograd, the clip and Adam update of ``train/optim.py``, and
+the EMA of the parameters after the update. The JAX package's step
+rearranges the decoder's weight gradients (``ops/deferred.py``) to work
+around XLA's scan transpose; autograd computes the same gradients
+directly, so the port has no such rearrangement.
+"""
+
+from __future__ import annotations
+
+from typing import Any, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from nspeech_tpu_torch.train.optim import apply_updates, global_norm
+from nspeech_tpu_torch.utils.tree import tree_leaves, tree_map
+
+
+class TrainState(NamedTuple):
+    step: int
+    params: Any
+    bn_state: Any
+    opt_state: Any
+    # Polyak/EMA average of params when cfg.ema_decay > 0, else None
+    ema_params: Any = None
+
+
+class TacotronBatch(NamedTuple):
+    """A feeder batch as tensors on the training device."""
+    inputs: torch.Tensor          # [B, T_in] int64
+    input_lengths: torch.Tensor   # [B] int64
+    speaker_ids: torch.Tensor     # [B] int64
+    mel_targets: torch.Tensor     # [B, T_out, M] float32
+    linear_targets: torch.Tensor  # [B, T_out, F] float32
+
+
+def batch_to_device(batch, device) -> TacotronBatch:
+    """The Tacotron fields of a ``data.feeder.Batch`` (numpy) on
+    ``device``; on CUDA through pinned host memory without blocking."""
+    device = torch.device(device)
+
+    def move(x, dtype):
+        t = torch.from_numpy(np.ascontiguousarray(x)).to(dtype)
+        if device.type == "cuda":
+            return t.pin_memory().to(device, non_blocking=True)
+        return t
+
+    return TacotronBatch(move(batch.inputs, torch.int64),
+                         move(batch.input_lengths, torch.int64),
+                         move(batch.speaker_ids, torch.int64),
+                         move(batch.mel_targets, torch.float32),
+                         move(batch.linear_targets, torch.float32))
+
+
+def create_state(model, optimizer, seed: int, ema: bool = False,
+                 device="cpu") -> TrainState:
+    """Step 0: the model's ``init(seed)`` on ``device``, a fresh optimizer
+    state and, with ``ema``, an average that starts at (a copy of) the
+    params."""
+    params, bn_state = model.init(seed)
+    params = tree_map(lambda t: t.to(device), params)
+    bn_state = tree_map(lambda t: t.to(device), bn_state)
+    ema_params = tree_map(torch.clone, params) if ema else None
+    return TrainState(0, params, bn_state, optimizer.init(params), ema_params)
+
+
+def ema_update(ema, new_params, decay: float):
+    if not decay or ema is None:
+        return ema
+    return tree_map(lambda e, p: e * decay + (1.0 - decay) * p, ema, new_params)
+
+
+def leaf_norms(tree) -> torch.Tensor:
+    """Per-leaf gradient norms, in ``tree_leaves`` order."""
+    return torch.stack([torch.sqrt(torch.sum(torch.square(x)))
+                        for x in tree_leaves(tree)])
+
+
+def tacotron_grads(model, state: TrainState, batch: TacotronBatch,
+                   generator: Optional[torch.Generator]):
+    """(grads, metrics, new_bn_state) of the training loss at
+    ``state.params``."""
+    params = tree_map(lambda p: p.detach().requires_grad_(True), state.params)
+    outputs, new_bn = model.forward_train(
+        params, state.bn_state, batch.inputs, batch.input_lengths,
+        batch.speaker_ids, batch.mel_targets, is_training=True,
+        generator=generator)
+    loss, metrics = model.loss(outputs, batch.mel_targets, batch.linear_targets)
+    leaves = tree_leaves(params)
+    grads = dict(zip(map(id, leaves),
+                     torch.autograd.grad(loss, leaves, allow_unused=True)))
+    grads = tree_map(lambda p: (torch.zeros_like(p) if grads[id(p)] is None
+                                else grads[id(p)]), params)
+    metrics = {k: v.detach() for k, v in metrics.items()}
+    return grads, metrics, new_bn
+
+
+def build_tacotron_train_step(model, optimizer, schedule=None,
+                              ema_decay: float = 0.0):
+    """``step_fn(state, batch, generator) -> (state, metrics)`` for
+    Tacotron-1/2 on a :class:`TacotronBatch`. Dropout and scheduled
+    sampling draw from ``generator`` (on the batch's device). The metrics
+    stay on the device: the loss terms, ``grad_norm`` (before the clip),
+    ``grad_norms`` (per leaf) and ``learning_rate`` (a float)."""
+
+    def step_fn(state: TrainState, batch: TacotronBatch,
+                generator: Optional[torch.Generator]):
+        grads, metrics, new_bn = tacotron_grads(model, state, batch, generator)
+        with torch.no_grad():
+            updates, new_opt = optimizer.update(grads, state.opt_state)
+            new_params = apply_updates(state.params, updates)
+            metrics["grad_norm"] = global_norm(grads)
+            metrics["grad_norms"] = leaf_norms(grads)
+            if schedule is not None:
+                metrics["learning_rate"] = float(schedule(state.step))
+            new_state = TrainState(
+                state.step + 1, new_params, new_bn, new_opt,
+                ema_update(state.ema_params, new_params, ema_decay))
+        return new_state, metrics
+
+    return step_fn
+
+
+def step_generator(device, seed: int, step: int) -> torch.Generator:
+    """The generator of one train step, seeded from (seed, step), so a
+    resumed run draws what an uninterrupted one would."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed((int(seed) * 1_000_003 + int(step)) % (2 ** 63))
+    return gen
+

@@ -1,12 +1,14 @@
-"""Spectrogram images as PNG files, written with the standard library.
+"""Spectrogram and alignment images as PNG files, written with the
+standard library.
 
-The port's counterpart of ``plot_specgram`` in
+The port's counterpart of ``plot_specgram`` and ``plot_alignment`` in
 ``nspeech_tpu/utils/plot.py``, which draws with matplotlib (not a
 dependency of the port). Same file names and content, drawn otherwise:
-one 8-bit grayscale pixel per (frame, bin), frames left to right, the
-lowest bin at the bottom, values min-max scaled to 0..255 (a constant
-spectrogram is black). There are no axes, title or colour bar, so the
-pixels differ from matplotlib's.
+one 8-bit grayscale pixel per (frame, bin) or (decoder step, input
+symbol), frames left to right, the lowest bin or first symbol at the
+bottom, values min-max scaled to 0..255 (a constant array is black).
+There are no axes, title, caption or colour bar, so the pixels differ
+from matplotlib's. The waveform plot (``plot_wave``) is not ported.
 """
 
 from __future__ import annotations
@@ -48,3 +50,11 @@ def plot_specgram(spec: np.ndarray, path: str, spec_type: str = "linear") -> Non
     del spec_type
     with open(path, "wb") as f:
         f.write(png_gray8(specgram_image(spec)))
+
+
+def plot_alignment(alignment: np.ndarray, path: str, info: str = None) -> None:
+    """alignment: [T_in, T_dec]. ``info`` (the JAX package's caption) is
+    not drawn."""
+    del info
+    with open(path, "wb") as f:
+        f.write(png_gray8(specgram_image(np.asarray(alignment).T)))

@@ -1,0 +1,230 @@
+"""Where a Tacotron-2 training step of the port goes, on one CUDA card.
+
+    python3 scripts/torch_train_profile.py
+
+Run from the repository root on a machine with the card. It writes the
+synthetic corpus of ``chip_smoke.py``'s training phase into a temporary
+directory and prints:
+
+1. The card against the CPU, one Tacotron-2 training step at the
+   published widths, no dropout, on 9 batches of 4 (the corpus's 4
+   shortest utterances at two init seeds, the next 4, and
+   ``chip_smoke.random_batch`` at seeds 0-5): the losses in float32 and
+   float64; how many of the L1 losses' signs and of the relus' masks
+   differ between the card, the CPU and float64; the worst leaf (largest
+   error over the leaf's largest entry) of five comparisons: the card
+   for the CPU's output cotangents, the card's own, the CPU and the card
+   in float32 for the float64 cotangents against float64, and the card
+   in float64 against the CPU in float64; the whole gradient's 2-norm
+   errors; the 4 worst leaves of the first comparison; then one
+   ``step_fn`` per device: the loss, ``grad_norm`` and the update's norm.
+2. One training step at batch 32 on the longest batch (after two warm-up
+   steps): its wall time, then the same step under ``torch.profiler``:
+   the device time by operation, the host time by operation, the count
+   of kernel launches and the device's busy share of the step.
+"""
+
+from __future__ import annotations
+
+import os
+import sys
+import tempfile
+import time
+
+import torch
+
+sys.path.insert(0, os.getcwd())
+
+import chip_smoke  # noqa: E402  (the training phase's corpus)
+from nspeech_tpu_torch.config import load_config  # noqa: E402
+from nspeech_tpu_torch.data.corpus import load_items  # noqa: E402
+from nspeech_tpu_torch.data.feeder import DataFeeder  # noqa: E402
+from nspeech_tpu_torch.models.tacotron2 import Tacotron2  # noqa: E402
+from nspeech_tpu_torch.train.loop import (batch_to_device,  # noqa: E402
+                                          build_tacotron_train_step,
+                                          create_state, step_generator)
+from nspeech_tpu_torch.train.optim import make_optimizer  # noqa: E402
+from nspeech_tpu_torch.utils.tree import named_leaves, tree_leaves, tree_map  # noqa: E402
+
+
+class ReluMasks:
+    """Within ``with``: records ``x > 0`` of every ``torch.relu`` call, in
+    call order (the conv stacks' and the prenet's activations)."""
+
+    def __enter__(self):
+        self.masks, self.real = [], torch.relu
+        torch.relu = self
+        return self
+
+    def __call__(self, x):
+        self.masks.append((x.detach() > 0).cpu())
+        return self.real(x)
+
+    def __exit__(self, *exc):
+        torch.relu = self.real
+
+
+def relu_flips(a, b):
+    """(total, [(call, shape, count)]) of the relu masks that differ."""
+    where = [(i, tuple(x.shape), int((x != y).sum())) for i, (x, y) in
+             enumerate(zip(a.masks, b.masks)) if (x != y).any()]
+    return sum(n for _, _, n in where), where
+
+
+def network_grads(model, state, batch, cotangents=None):
+    """(grads by leaf path, loss, cotangents): the gradient of the
+    training loss (``drop_rate`` 0) through the network for the given
+    cotangents of (mel_outputs, linear_outputs), by default the loss's own
+    on this device; handing one computation's cotangents to another holds
+    the rest of the backward without the L1 losses' sign flips."""
+    params = tree_map(lambda p: p.detach().requires_grad_(True), state.params)
+    out, _ = model.forward_train(params, state.bn_state, batch.inputs,
+                                 batch.input_lengths, batch.speaker_ids,
+                                 batch.mel_targets)
+    heads = [out["mel_outputs"], out["linear_outputs"]]
+    # the loss's partial derivatives in the outputs (linear_outputs also
+    # depend on mel_outputs: the VJP below adds that path)
+    leaves = [h.detach().requires_grad_(True) for h in heads]
+    loss, _ = model.loss({"mel_outputs": leaves[0], "linear_outputs": leaves[1],
+                          "alignments": out["alignments"].detach()},
+                         batch.mel_targets, batch.linear_targets)
+    if cotangents is None:
+        cotangents = torch.autograd.grad(loss, leaves)
+    named = named_leaves(params)
+    grads = torch.autograd.grad(
+        heads, [p for _, p in named],
+        grad_outputs=[c.to(h.device, h.dtype) for c, h in zip(cotangents, heads)],
+        allow_unused=True)
+    return ({path: torch.zeros_like(p) if g is None else g
+             for (path, p), g in zip(named, grads)}, loss.item(), cotangents)
+
+
+def gradient_errors(items) -> None:
+    """Card against CPU on batches of 4 at the published widths, no
+    dropout, float32 and float64, per leaf, with the relu masks that
+    differ; then one ``step_fn`` (clip, Adam, EMA) on each device from the
+    same state."""
+    grads = network_grads
+    cfg = load_config("taco2").parse("batch_size=4,batch_group_size=1,drop_rate=0.0")
+    model = Tacotron2(cfg)
+    opt, sched = make_optimizer(cfg, "taco2")
+    ema = cfg.ema_decay > 0
+    step = build_tacotron_train_step(model, opt, sched, cfg.ema_decay)
+    cases = [("corpus 0-3", 0, next(DataFeeder(items[:4], cfg).epoch_batches(0))),
+             ("corpus 0-3", 1, next(DataFeeder(items[:4], cfg).epoch_batches(0))),
+             ("corpus 4-7", 0, next(DataFeeder(items[4:8], cfg).epoch_batches(0)))]
+    cases += [(f"random {s}", 0, chip_smoke.random_batch(s)) for s in range(6)]
+    for name, seed, batch in cases:
+        state = {d: create_state(model, opt, seed, ema=ema, device=d)
+                 for d in ("cpu", "cuda")}
+        data = {d: batch_to_device(batch, d) for d in ("cpu", "cuda")}
+        torch.set_default_dtype(torch.float64)   # the decoder's zero carries too
+        try:
+            s64, b64 = chip_smoke.to_float64(state["cpu"], data["cpu"])
+            with ReluMasks() as m64:
+                ref, loss64, cot64 = grads(model, s64, b64)
+            s64, b64 = chip_smoke.to_float64(state["cuda"], data["cuda"])
+            card64 = grads(model, s64, b64, cot64)[0]
+            card64_own = grads(model, s64, b64)[0]
+        finally:
+            torch.set_default_dtype(torch.float32)
+        with ReluMasks() as m_cpu:
+            cpu, loss_cpu, cot_cpu = grads(model, state["cpu"], data["cpu"])
+        with ReluMasks() as m_card:
+            own, loss_gpu, cot_gpu = grads(model, state["cuda"], data["cuda"])
+        shared = grads(model, state["cuda"], data["cuda"], cot_cpu)[0]
+        cpu_t = grads(model, state["cpu"], data["cpu"], cot64)[0]
+        card_t = grads(model, state["cuda"], data["cuda"], cot64)[0]
+        cols = {"card|cpu cot": chip_smoke.leaf_gaps(cpu, shared), "card own": chip_smoke.leaf_gaps(cpu, own),
+                "cpu32-64": chip_smoke.leaf_gaps(ref, cpu_t), "card32-64": chip_smoke.leaf_gaps(ref, card_t),
+                "card64-64": chip_smoke.leaf_gaps(ref, card64)}
+        flips = [sum(int((a.cpu().sign() != b.cpu().sign()).sum())
+                     for a, b in zip(x, y)) for x, y in
+                 ((cot_cpu, cot_gpu), (cot_cpu, cot64), (cot_gpu, cot64))]
+        n_cot = sum(c.numel() for c in cot64)
+        print(f"{name}, init seed {seed}, T_out {batch.mel_targets.shape[1]}: loss "
+              f"float64 {loss64:.9f}, cpu {loss_cpu:.9f}, card {loss_gpu:.9f}; L1 signs "
+              f"flipped of {n_cot}: card/cpu {flips[0]}, cpu/f64 {flips[1]}, "
+              f"card/f64 {flips[2]}")
+        n_relu = sum(x.numel() for x in m64.masks)
+        for label, a, b in (("card/cpu", m_cpu, m_card), ("cpu/f64", m64, m_cpu),
+                            ("card/f64", m64, m_card)):
+            total, where = relu_flips(a, b)
+            print(f"  relu masks {label}: {total} of {n_relu} differ, at (call, shape, "
+                  f"count) {where[:8]}")
+        print(f"  float64 card own vs cpu: worst leaf "
+              f"{max(chip_smoke.leaf_gaps(ref, card64_own).values()):.2e}; whole gradient, "
+              f"2-norm of the error over the gradient's: card own/cpu "
+              f"{chip_smoke.rel_err(cpu, own):.2e}, cpu32/f64 {chip_smoke.rel_err(ref, cpu_t):.2e}, "
+              f"card32/f64 {chip_smoke.rel_err(ref, card_t):.2e}")
+        print("  worst leaf per column: " + "; ".join(
+            f"{c} {max(v.values()):.2e} ({max(v, key=v.get)})" for c, v in cols.items()))
+        first = cols["card|cpu cot"]
+        for path in sorted(first, key=first.get, reverse=True)[:4]:
+            print(f"  {path:44s} max|g| {ref[path].abs().max().item():.3e}  " + "  ".join(
+                f"{c} {v[path]:.2e}" for c, v in cols.items()))
+        out = {}
+        for d in ("cpu", "cuda"):
+            new, m = step(state[d], data[d], None)
+            upd = torch.sqrt(sum(torch.sum((a - b).double() ** 2) for a, b in zip(
+                tree_leaves(new.params), tree_leaves(state[d].params))))
+            out[d] = (float(m["loss"]), float(m["grad_norm"]), float(upd))
+        (lc, nc, uc), (lg, ng, ug) = out["cpu"], out["cuda"]
+        print(f"  step_fn: loss rel {abs(lg - lc) / lc:.2e}, grad_norm {nc:.6e} vs "
+              f"{ng:.6e} (rel {abs(ng - nc) / nc:.2e}), update norm rel "
+              f"{abs(ug - uc) / uc:.2e}")
+
+
+def profile_step(corpus) -> None:
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = load_config("taco2")
+    batches = list(DataFeeder({"ljspeech": corpus}, cfg, seed=0).epoch_batches(0))
+    longest = max(batches, key=lambda b: b.mel_targets.shape[1])
+    model = Tacotron2(cfg)
+    opt, sched = make_optimizer(cfg, "taco2")
+    state = create_state(model, opt, 0, device="cuda")
+    step = build_tacotron_train_step(model, opt, sched)
+    data = batch_to_device(longest, "cuda")
+    for i in range(2):
+        state, m = step(state, data, step_generator("cuda", 0, i))
+        float(m["loss"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, m = step(state, data, step_generator("cuda", 0, 2))
+    float(m["loss"])
+    wall = time.perf_counter() - t0
+    print(f"step at batch {data.mel_targets.shape[0]}, T_in "
+          f"{data.inputs.shape[1]}, T_out {data.mel_targets.shape[1]}: "
+          f"{wall * 1e3:.1f} ms")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        state, m = step(state, data, step_generator("cuda", 0, 3))
+        float(m["loss"])
+        torch.cuda.synchronize()
+    ka = prof.key_averages()
+    kernels = [e for e in ka if e.device_type.name == "CUDA"]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    print(f"device busy {busy:.1f} ms (sum of kernel times) in the profiled "
+          f"step; kernel launches {sum(e.count for e in kernels)}")
+    print(ka.table(sort_by="self_device_time_total", row_limit=15,
+                   max_name_column_width=50))
+    print(ka.table(sort_by="cpu_time_total", row_limit=12,
+                   max_name_column_width=50))
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("no CUDA device: this script runs on the card", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(chip_smoke.card_line())
+    with tempfile.TemporaryDirectory() as tmp:
+        corpus = chip_smoke.write_corpus(os.path.join(tmp, "corpus"))
+        gradient_errors(load_items({"ljspeech": corpus}))
+        profile_step(corpus)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

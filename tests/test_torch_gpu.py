@@ -2,8 +2,15 @@
 primed and carried-state launches) against its plain PyTorch version, the
 wrapper's checks, the one-shot and streaming serving paths on the card,
 Tacotron-1 on the card against its CPU forward (within 1e-3, TF32 off),
-and concurrent callers sharing launches through the ``DynamicBatcher``.
-They skip without a CUDA device.
+concurrent callers sharing launches through the ``DynamicBatcher``, and
+one Tacotron-2 training step at the published widths on the card against
+the same step on the CPU (``chip_smoke.step_agreement``: in float32 the
+loss within 1e-4 relative, the gradient, ``grad_norm``, Adam's update and
+the EMA within 3e-3 relative in 2-norm, each leaf within 0.1 of its
+largest entry, a relu or an L1 residual within float32 rounding of 0
+passing its gradient on one device only; in float64 each leaf within
+1e-9 of its largest entry, a conv bias that feeds batch norm measured
+against its kernel's gradient). They skip without a CUDA device.
 
 Unlike the other ``test_torch_*`` files this one imports no JAX, so that it
 runs where only PyTorch is installed:
@@ -395,3 +402,23 @@ def test_dynamic_batcher_shares_launches(cuda):
     assert all(np.isfinite(w).all() and w.size > 0 for w, _, _ in out.values())
     assert launches == batcher.stats["batches"] < 6
     assert batcher.stats["max_batch_seen"] >= 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("data", ["corpus", "random"])
+def test_train_step_on_card_matches_cpu(cuda, tmp_path, data):
+    """``chip_smoke.py``'s check, one Tacotron-2 step at the published
+    widths, no dropout: on the 4 shortest utterances of its synthetic
+    corpus, and on a batch of random symbols and random targets."""
+    from chip_smoke import card_vs_cpu_step, random_batch, step_agreement, write_corpus
+    from nspeech_tpu_torch.data.corpus import load_items
+    from nspeech_tpu_torch.data.feeder import DataFeeder
+
+    if data == "corpus":
+        items = load_items({"ljspeech": write_corpus(str(tmp_path / "corpus"))})
+        cfg = load_config("taco2").parse("batch_size=4,batch_group_size=1")
+        batch = next(DataFeeder(items[:4], cfg).epoch_batches(0))
+    else:
+        batch = random_batch(0)
+    good, line = step_agreement(card_vs_cpu_step(batch))
+    assert good, line
