@@ -86,10 +86,28 @@
     vocoder (one-shot launches), and trains Tacotron-1 at its published
     widths for 2 steps. The training path reaches no TPU kernel; only the
     synthesis launches the sampler.
-11. Prints each form's time per sample (per step for the primed form)
+11. Trains the vocoder on the card (``wavenet_train_phase``, on the
+    training phase's corpus): ``cli.train_wavenet`` at the repo's vocoder
+    recipe (the ``wavenet`` preset, 50 layers, + WN_HPARAMS: lc 80, gc 16,
+    windows of 5,117 + 20,480 samples, batch 4) for WN_STEPS steps with
+    checkpoints every 3 (each step's time, sec/step as the median of
+    steps 2-WN_STEPS, audio samples per second, peak memory), resumed for
+    one more; one step on the card against the CPU on one window of
+    WN_CHECK_WINDOW samples (``wavenet_card_vs_cpu``: float64 gradients
+    within WN_GRAD_TOL of each leaf's largest entry; in float32 the loss
+    within WN_LOSS_TOL, the gradient, ``grad_norm``, Adam's update and the
+    EMA within WN_NORM_TOL in 2-norm, each leaf within WN_LEAF_TOL); then
+    ``cli.export_gta`` from the trained Tacotron-2 over the corpus (one
+    file per utterance of 1 + trimmed length // hop rows, the manifest's
+    fingerprint the config's; timed), ``cli.train_wavenet --gta-dir
+    --hparams-from`` for 2 more steps on those mels, ``cli.generate_wavenet``
+    from that checkpoint on one exported mel (CLI_SAMPLES samples, K1),
+    and ``cli.train --device-cache 2`` for 2 Tacotron-2 steps from batches
+    held on the card.
+12. Prints each form's time per sample (per step for the primed form)
     beside its bound, one ``{"kernels": [...]}`` line (one-shot, carried
     and primed records; ``launches`` summed over the paths of phases
-    5-10, each counted from 0 just before it) and, last, the
+    5-11, each counted from 0 just before it) and, last, the
     ``{"ok": true, "device": ...}`` line. Exits non-zero without a card
     or when any check fails.
 """
@@ -128,6 +146,22 @@ STEP_LOSS_TOL = 1e-4    # training loss, card vs CPU, relative
 STEP_GRAD_TOL = 1e-9    # float64 gradients, card vs CPU, of each leaf's largest entry
 STEP_NORM_TOL = 3e-3    # float32 gradient, grad_norm, update, EMA: relative 2-norm
 STEP_LEAF_TOL = 0.1     # float32 gradients, of each leaf's largest entry
+# the vocoder's training: the repo's recipe (docs/vocoder/README.md)
+WN_HPARAMS = "lc_channels=80,gc_channels=16,sample_size=20480,batch_size=4"
+WN_STEPS = 6            # first WaveNet run, checkpoints every 3; the resumed run adds one
+WN_CHECK_WINDOW = 2048  # samples past the receptive field of the card-vs-CPU window
+# Card against CPU, readings on 9 windows of the corpus (the smoke's and
+# scripts/torch_train_profile.py --model wavenet's 8): float64 worst
+# leaf <= 5.1e-15; float32 loss <= 8.2e-8 relative. A post-net relu input
+# within rounding of 0 passes its gradient on one device only: 1-2 of the
+# 2.1 M inputs in 4 of the 8 windows, which then moved the float32
+# gradient by up to 4.4e-4 in 2-norm (grad_norm 8.3e-5, update 4.6e-6,
+# EMA 2.4e-5) and a leaf by up to 2.8e-3 of its largest entry; without a
+# flip 4.1e-7 and 2.8e-6.
+WN_GRAD_TOL = 1e-9      # float64 gradients, of each leaf's largest entry
+WN_LOSS_TOL = 1e-6      # float32 loss, relative
+WN_NORM_TOL = 3e-3      # float32 gradient, grad_norm, update, EMA: relative 2-norm
+WN_LEAF_TOL = 3e-2      # float32 gradients, of each leaf's largest entry
 PEAK_F32_FLOPS = 67e12  # H100 SXM, float32 outside the tensor cores
 PEAK_BYTES = 3.35e12    # H100 SXM HBM3
 
@@ -1466,6 +1500,293 @@ def train_phase(tmp: str):
     return ok, one
 
 
+def wavenet_cfg(extra: str = ""):
+    from nspeech_tpu_torch.config import load_config
+
+    return load_config("wavenet").parse(WN_HPARAMS + extra)
+
+
+def wavenet_card_vs_cpu(batch) -> dict:
+    """One WaveNet step at the recipe's widths (gc table of 1 speaker, an
+    EMA of decay 0.999) from the same state on the card and on the CPU, on
+    ``batch`` (a ``WaveNetBatch`` of frame-rate mels). Returns the readings
+    that ``wavenet_agreement`` holds to their bounds: from
+    ``build_wavenet_train_step`` in float32 the loss, ``grad_norm`` and the
+    2-norms of the parameters' and the EMA's moves, relative to the CPU's;
+    the float32 gradient (``wavenet_grads``) relative in 2-norm
+    (``grads``) and its worst leaf (``leaf32``; a post-net relu input
+    within rounding of 0 moves single entries); and the worst leaf of the
+    gradient in float64 on both devices (``leaf64``, the conditioning
+    upsampled in float32 and then widened)."""
+    from nspeech_tpu_torch.models.wavenet import WaveNet
+    from nspeech_tpu_torch.ops.upsample import batch_lc
+    from nspeech_tpu_torch.train.loop import (WaveNetDeviceBatch,
+                                              build_wavenet_train_step,
+                                              create_state, wavenet_batch_to_device,
+                                              wavenet_grads)
+    from nspeech_tpu_torch.train.optim import make_optimizer
+    from nspeech_tpu_torch.utils.tree import named_leaves, tree_map
+
+    cfg = wavenet_cfg(",gc_category_cardinality=1,ema_decay=0.999")
+    net = WaveNet(cfg)
+    opt, sched = make_optimizer(cfg, "wavenet")
+    step = build_wavenet_train_step(net, opt, cfg, sched, use_gc=True,
+                                    use_lc=True, ema_decay=cfg.ema_decay)
+
+    def move(tree, old):        # 2-norm of tree - old
+        return torch.sqrt(sum(torch.sum((x - old[p]).double() ** 2)
+                              for p, x in named_leaves(tree))).item()
+
+    out = {}
+    for dev in ("cpu", "cuda"):
+        state = create_state(net, opt, 0, ema=True, device=dev)
+        data = wavenet_batch_to_device(batch, dev)
+        t0 = time.perf_counter()
+        grads = dict(named_leaves(wavenet_grads(net, state.params, data, cfg,
+                                                True, True)[0]))
+        new, m = step(state, data)
+        old = dict(named_leaves(state.params))
+        out[dev] = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                    "grads": grads, "update": move(new.params, old),
+                    "ema": move(new.ema_params, old), "s": time.perf_counter() - t0}
+        data64 = WaveNetDeviceBatch(data.audio.double(), data.speaker_ids,
+                                    batch_lc(data, cfg).double(), None)
+        out[dev]["grads64"] = dict(named_leaves(wavenet_grads(
+            net, tree_map(torch.Tensor.double, state.params), data64, cfg,
+            True, True)[0]))
+    cpu, card = out["cpu"], out["cuda"]
+    r = {k: rel_err(cpu[k], card[k])
+         for k in ("loss", "grad_norm", "grads", "update", "ema")}
+    r.update(leaf32=grad_gap(cpu["grads"], card["grads"]),
+             leaf64=grad_gap(cpu["grads64"], card["grads64"]),
+             loss_cpu=cpu["loss"], loss_card=card["loss"], cpu_s=cpu["s"],
+             card_s=card["s"])
+    return r
+
+
+def wavenet_agreement(r) -> tuple:
+    """(ok, line) for the readings of ``wavenet_card_vs_cpu``."""
+    ok = (r["loss"] <= WN_LOSS_TOL and r["leaf64"] <= WN_GRAD_TOL
+          and max(r["grad_norm"], r["grads"], r["update"], r["ema"]) <= WN_NORM_TOL
+          and r["leaf32"] <= WN_LEAF_TOL)
+    return ok, (
+        f"loss {r['loss_card']:.7f} vs {r['loss_cpu']:.7f} (rel {r['loss']:.2e}, "
+        f"tol {WN_LOSS_TOL}); float64 gradients: worst leaf {r['leaf64']:.2e} of its "
+        f"largest entry (tol {WN_GRAD_TOL}); float32, relative in 2-norm (tol "
+        f"{WN_NORM_TOL}): gradient {r['grads']:.2e}, grad_norm {r['grad_norm']:.2e}, "
+        f"Adam's update {r['update']:.2e}, EMA's move {r['ema']:.2e}; float32 worst "
+        f"leaf {r['leaf32']:.2e} (tol {WN_LEAF_TOL}); step and float32 gradient cpu "
+        f"{r['cpu_s']:.2f} s, card {r['card_s']:.2f} s (first call)")
+
+
+def wavenet_train_phase(tmp: str):
+    """The vocoder's training on the card, on ``train_phase``'s corpus and
+    Tacotron-2 checkpoint (see the module's item 11). Returns (ok,
+    one-shot launches of the generation from the fine-tuned vocoder)."""
+    import contextlib
+    import io
+    import os
+    import re
+    import statistics
+
+    from scipy.io import wavfile
+
+    from nspeech_tpu_torch.cli import export_gta, generate_wavenet
+    from nspeech_tpu_torch.cli import train as train_cli
+    from nspeech_tpu_torch.cli import train_wavenet as wn_cli
+    from nspeech_tpu_torch.config import stft_params
+    from nspeech_tpu_torch.data.corpus import load_items
+    from nspeech_tpu_torch.data.gta import fingerprint, gta_path, load_manifest
+    from nspeech_tpu_torch.data.wavenet_feeder import WaveNetFeeder
+    from nspeech_tpu_torch.dsp.trim import trim_silence
+    from nspeech_tpu_torch.dsp.wavio import load_wav
+    from nspeech_tpu_torch.models.wavenet import WaveNet
+    from nspeech_tpu_torch.ops.cuda import wavenet_gen
+    from nspeech_tpu_torch.train.metadata import load_run_metadata
+
+    card = card_line()
+    phase_t0 = time.perf_counter()
+    ok = True
+    corpus = os.path.join(tmp, "corpus")
+    logs = os.path.join(tmp, "logs")
+    wn_ckpt = os.path.join(logs, "wavenet", "ckpt")
+    cfg = wavenet_cfg()
+    window = WaveNet(cfg).receptive_field + cfg.sample_size
+
+    step_times = []
+    real_build = wn_cli.build_wavenet_train_step
+
+    def timed_build(*args, **kwargs):
+        step_fn = real_build(*args, **kwargs)
+
+        def timed(state, batch, generator=None):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step_fn(state, batch, generator)
+            torch.cuda.synchronize()
+            step_times.append(time.perf_counter() - t0)
+            return out
+
+        return timed
+
+    def run_cli(main, argv, build=None):
+        out = io.StringIO()
+        step_times.clear()
+        torch.cuda.reset_peak_memory_stats()
+        if build is not None:
+            wn_cli.build_wavenet_train_step = build
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(out):
+                main(argv)
+            torch.cuda.synchronize()
+        finally:
+            wn_cli.build_wavenet_train_step = real_build
+        wall = time.perf_counter() - t0
+        text = out.getvalue()
+        for line in text.splitlines():
+            if not line.startswith("  "):      # the hparams dump
+                print("  |", line)
+        losses = [float(x) for x in re.findall(r"loss=([-0-9.naninf]+),", text)]
+        return text, wall, losses, torch.cuda.max_memory_allocated()
+
+    base = ["--ljspeech", corpus, "--log-dir", logs, "--checkpoint-interval", "3",
+            "--seed", "0"]
+    text, wall, losses, peak = run_cli(
+        wn_cli.main, base + ["--hparams", WN_HPARAMS, "--max-steps", str(WN_STEPS)],
+        timed_build)
+    meta = load_run_metadata(wn_ckpt) or {}
+    good = (len(losses) == WN_STEPS and all(np.isfinite(losses))
+            and all(os.path.exists(os.path.join(wn_ckpt, f)) for f in
+                    ("serving/3.npz", f"serving/{WN_STEPS}.npz", f"train/{WN_STEPS}.pt"))
+            and meta.get("speaker_map") == [["ljspeech", "0", 0]]
+            and meta["hparams"]["gc_category_cardinality"] == 1)
+    ok &= good
+    samples = cfg.batch_size * cfg.sample_size
+    for i, sec in enumerate(step_times):
+        print(f"train wavenet step {i + 1}: {sec:.4f} s, loss {losses[i]:.5f}, "
+              f"batch {cfg.batch_size} windows of {window} samples [{card}]")
+    sec_step = statistics.median(step_times[1:])
+    print(f"train wavenet (recipe widths: 50 layers, R 32, S 512, Q 256, lc 80, gc "
+          f"16; batch {cfg.batch_size} x {cfg.sample_size} samples): sec/step "
+          f"{sec_step:.4f} (median of steps 2-{WN_STEPS}), {samples / sec_step:.0f} "
+          f"audio samples per second, peak memory {peak / 2**30:.2f} GiB "
+          f"(max_memory_allocated), {wall:.1f} s wall for the run; checkpoints and "
+          f"config.json {'ok' if good else 'FAIL'} [{card}]")
+
+    text, wall, losses, _ = run_cli(
+        wn_cli.main, base + ["--hparams", WN_HPARAMS, "--max-steps",
+                             str(WN_STEPS + 1)], timed_build)
+    good = (f"Resumed from checkpoint step {WN_STEPS}" in text and len(losses) == 1
+            and np.isfinite(losses[0]) and os.path.exists(
+                os.path.join(wn_ckpt, f"serving/{WN_STEPS + 1}.npz")))
+    ok &= good
+    print(f"train wavenet resume: step {WN_STEPS} -> {WN_STEPS + 1}, loss "
+          f"{losses[0] if losses else float('nan'):.5f}, "
+          f"{step_times[0] if step_times else float('nan'):.4f} s for the step, "
+          f"{wall:.1f} s wall -> {'ok' if good else 'FAIL'} [{card}]")
+
+    # the window feeder on the host: windows per second
+    feeder = WaveNetFeeder({"ljspeech": corpus}, window - cfg.sample_size, cfg)
+    stream = feeder.batches()
+    t0 = time.perf_counter()
+    n_feed = 8
+    for _ in range(n_feed):
+        next(stream)
+    feed_s = time.perf_counter() - t0
+    print(f"wavenet feeder: {n_feed} batches of {cfg.batch_size} windows in "
+          f"{feed_s:.3f} s on the host CPU ({feed_s / n_feed * 1e3:.1f} ms per "
+          f"batch) [{card}]")
+
+    small = wavenet_cfg(f",batch_size=1,sample_size={WN_CHECK_WINDOW}")
+    batch = next(WaveNetFeeder({"ljspeech": corpus}, window - cfg.sample_size,
+                               small).batches())
+    good, line = wavenet_agreement(wavenet_card_vs_cpu(batch))
+    ok &= good
+    print(f"train wavenet step cuda vs cpu (1 window of {batch.audio.shape[1]} "
+          f"samples): {line} -> {'ok' if good else 'FAIL'} [{card}]")
+
+    gta_dir = os.path.join(tmp, "gta")
+    taco_ckpt = os.path.join(logs, "taco2", "ckpt")
+    text, wall, _, _ = run_cli(export_gta.main, [
+        "--checkpoint", taco_ckpt, "--ljspeech", corpus, "--out-dir", gta_dir])
+    manifest = load_manifest(gta_dir)
+    _, hop, _ = stft_params(cfg)
+    rows = []
+    for wav_path, _t, _s, _d in load_items({"ljspeech": corpus}):
+        wav = trim_silence(load_wav(wav_path, cfg.sample_rate), cfg.silence_threshold)
+        if wav.size:
+            mel = np.load(gta_path(gta_dir, wav_path))
+            rows.append(mel.shape[0] == 1 + len(wav) // hop
+                        and bool(np.isfinite(mel).all()))
+    taco_cfg = load_run_metadata(taco_ckpt)["hparams"]
+    good = (len(rows) == manifest["count"] == len(manifest["files"]) and all(rows)
+            and manifest["fingerprint"] == fingerprint(cfg)
+            == {k: taco_cfg[k] for k in manifest["fingerprint"]})
+    ok &= good
+    print(f"cli export_gta from the trained taco2 over {len(rows)} utterances: "
+          f"{wall:.3f} s wall, {manifest['count']} mels with 1 + trimmed // hop "
+          f"rows, fingerprint equal to the config's -> {'ok' if good else 'FAIL'} "
+          f"[{card}]")
+
+    text, wall, losses, peak = run_cli(wn_cli.main, [
+        "--ljspeech", corpus, "--log-dir", logs, "--gta-dir", gta_dir,
+        "--hparams-from", wn_ckpt, "--max-steps", str(WN_STEPS + 3),
+        "--checkpoint-interval", "3"], timed_build)
+    good = (f"Resumed from checkpoint step {WN_STEPS + 1}" in text
+            and "GTA mode" in text and len(losses) == 2
+            and all(np.isfinite(losses)) and os.path.exists(
+                os.path.join(wn_ckpt, f"serving/{WN_STEPS + 3}.npz")))
+    ok &= good
+    print(f"train wavenet on the GTA mels (--hparams-from, resumed at step "
+          f"{WN_STEPS + 1}): steps {', '.join(f'{t:.4f} s' for t in step_times)}, "
+          f"losses {losses}, {wall:.1f} s wall -> {'ok' if good else 'FAIL'} [{card}]")
+
+    reset_launches()
+    mel_path = os.path.join(gta_dir, sorted(manifest["files"].values())[0])
+    out_wav = os.path.join(tmp, "gta_vocoded.wav")
+    text, wall, _, _ = run_cli(generate_wavenet.main, [
+        wn_ckpt, "--mel-npy", mel_path, "--gc-id", "0", "--samples",
+        str(CLI_SAMPLES), "--wav_out_path", out_wav])
+    one = wavenet_gen.SAMPLER.launches
+    sr_out, wav = wavfile.read(out_wav)
+    good = one >= 1 and wav.size == CLI_SAMPLES and sr_out == cfg.sample_rate
+    ok &= good
+    print(f"cli generate_wavenet from the GTA-tuned vocoder (step {WN_STEPS + 3}) "
+          f"on an exported mel: {wall:.3f} s wall, launches one-shot {one}; wav "
+          f"{wav.size} samples -> {'ok' if good else 'FAIL'} [{card}]")
+
+    caches = []
+    real_cache = train_cli.DeviceCachedBatches
+
+    class Recorded(real_cache):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            caches.append(self)
+
+    train_cli.DeviceCachedBatches = Recorded
+    try:
+        text, wall, losses, peak = run_cli(train_cli.main, [
+            "--ljspeech", corpus, "--log-dir", logs, "--name", "taco2_cached",
+            "--cache-dir", os.path.join(tmp, "features"), "--model", "taco2",
+            "--device-cache", "2", "--max-steps", "2", "--checkpoint-interval", "2"])
+    finally:
+        train_cli.DeviceCachedBatches = real_cache
+    cache = caches[0] if caches else None
+    good = (cache is not None and len(losses) == 2 and all(np.isfinite(losses))
+            and all(x.is_cuda for b in cache._batches for x in b)
+            and "Device-cached" in text)
+    ok &= good
+    print(f"cli train --device-cache 2 (taco2, batch 32): "
+          f"{cache.n_batches if cache else 0} batches of one shape on the card, "
+          f"{cache.cached_mb if cache else 0:.0f} MB; losses {losses}, peak memory "
+          f"{peak / 2**30:.2f} GiB, {wall:.1f} s wall -> {'ok' if good else 'FAIL'} "
+          f"[{card}]")
+    print(f"wavenet_train_phase took {time.perf_counter() - phase_t0:.1f} s")
+    return ok, one
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("no CUDA device: this smoke runs on the card", file=sys.stderr)
@@ -1491,6 +1812,8 @@ def main() -> int:
         carried["launches"] += more
         train_ok, one = train_phase(tmp)
         record["launches"] += one
+        wn_ok, one = wavenet_train_phase(tmp)
+        record["launches"] += one
     print(f"smoke took {time.perf_counter() - start:.1f} s after the card line")
     for rec in (record, carried, primed):
         for form, ms, bound in rec.pop("per_sample"):
@@ -1499,7 +1822,7 @@ def main() -> int:
     print(json.dumps({"kernels": [record, carried, primed]}))
     if not (record["checked"] and carried["checked"] and primed["checked"]
             and e2e_ok and stream_ok and taco1_ok and server_ok and cli_ok
-            and train_ok):
+            and train_ok and wn_ok):
         print("FAIL", file=sys.stderr)
         return 1
     print(json.dumps({"ok": True, "device": {

@@ -10,12 +10,15 @@ route: primed from ``--wav_seed`` (kernel form K3), unprimed (K1/K2), or
 chunk by chunk into the wav file with ``--stream-chunk`` (carried state,
 K4). ``--device cpu`` runs the plain PyTorch generator, the counterpart of
 the JAX CLI's scan route. Supports global conditioning (``--gc-id``) and
-mel conditioning from a saved spectrogram (``--mel-npy``).
+mel conditioning from a saved spectrogram (``--mel-npy``). As the JAX CLI
+does, each route opens ``metrics.jsonl`` beside the output wav for its
+audio summary, which the port (without TensorBoard) leaves empty.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import struct
 import time
 
@@ -32,6 +35,7 @@ from nspeech_tpu_torch.models import create_model
 from nspeech_tpu_torch.ops.cuda.wavenet_gen import CudaWaveNetGenerator
 from nspeech_tpu_torch.serving.errors import ClientError, check_ids
 from nspeech_tpu_torch.train import config_from_checkpoint, load_serving_params
+from nspeech_tpu_torch.utils.metrics import MetricWriter
 
 
 def _sync(device: torch.device) -> None:
@@ -81,6 +85,14 @@ def _stream(args, cfg, net, gen, lc, device) -> None:
           % (total, elapsed, rate, rate / cfg.sample_rate,
              min(k, args.samples), first))
     print("Wrote %s" % args.wav_out_path)
+    _audio_summary(args, cfg, np.concatenate(chunks))
+
+
+def _audio_summary(args, cfg, wav: np.ndarray) -> None:
+    """The JAX CLI's audio summary beside the output wav."""
+    writer = MetricWriter(os.path.dirname(os.path.abspath(args.wav_out_path)))
+    writer.audio(0, "generated_audio", wav, cfg.sample_rate)
+    writer.close()
 
 
 def main(argv=None) -> None:
@@ -180,6 +192,7 @@ def main(argv=None) -> None:
     wav = mu_law_decode(codes[0], net.quantization_channels).numpy()
     save_wav(wav, args.wav_out_path, cfg.sample_rate)
     print("Wrote %s" % args.wav_out_path)
+    _audio_summary(args, cfg, wav)
 
 
 if __name__ == "__main__":

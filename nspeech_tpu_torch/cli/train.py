@@ -10,9 +10,12 @@ train step of ``train/loop.py``, checkpoints under ``<log-dir>/<name>/ckpt``
 that resume (``train/<step>.pt``) and serve (``serving/<step>.npz`` and
 ``config.json`` with the speaker map, which ``cli.synthesize`` reads),
 ``metrics.jsonl``, and at each checkpoint a Griffin-Lim wav and -lin, -mel
-and -align PNGs of the longest utterance of the first batch. Options of
-the JAX trainer whose modules the port does not have yet exit with the
-``ROADMAP.md`` item that holds them.
+and -align PNGs of the longest utterance of the first batch.
+``--device-cache N`` holds N epochs' batches on the device
+(``data/device_cache.py``). WaveNet trains with
+``nspeech_tpu_torch.cli.train_wavenet``. Options of the JAX trainer whose
+modules the port does not have yet exit with the ``ROADMAP.md`` item that
+holds them.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ import torch
 
 from nspeech_tpu_torch import config
 from nspeech_tpu_torch import dsp
+from nspeech_tpu_torch.data.device_cache import DeviceCachedBatches
 from nspeech_tpu_torch.data.feeder import DataFeeder
 from nspeech_tpu_torch.dsp.wavio import save_wav
 from nspeech_tpu_torch.models import create_model
@@ -58,14 +62,17 @@ def prepare_input_paths(args) -> dict:
 
 
 def check_supported(args, cfg) -> torch.device:
-    """The training device; exits for what the port cannot train yet."""
+    """The training device; exits for what this trainer cannot train."""
     if args.model not in TRAINABLE:
-        raise SystemExit(f"--model {args.model}: the port trains {TRAINABLE}; "
-                         "WaveNet training is not ported yet (ROADMAP.md "
-                         "section 1, item 4.1)")
-    if args.device_cache:
-        raise SystemExit("--device-cache: the device-resident batch cache is "
-                         "not ported yet (ROADMAP.md section 1, item 4.2)")
+        raise SystemExit(f"--model {args.model}: this trainer trains "
+                         f"{TRAINABLE}; train a WaveNet with python -m "
+                         "nspeech_tpu_torch.cli.train_wavenet")
+    return training_device(args, cfg)
+
+
+def training_device(args, cfg) -> torch.device:
+    """The device of both trainers; exits for what the port cannot train
+    yet (reduced precision, several processes) and for a missing card."""
     if args.matmul_precision != "highest":
         raise SystemExit(f"--matmul-precision {args.matmul_precision}: the port "
                          "trains in float32 with TF32 off ('highest'); the "
@@ -129,7 +136,15 @@ def train(log_dir: str, args, cfg, device: torch.device) -> None:
     ckpt = CheckpointManager(ckpt_dir, args.model, cfg,
                              speaker_map=feeder.speaker2id)
 
-    batches = feeder.batches()
+    if args.device_cache:
+        cache = DeviceCachedBatches(feeder, device,
+                                    n_epoch_variants=args.device_cache,
+                                    seed=args.seed)
+        log("Device-cached %d batches (%.0f MB on %s); per-step host "
+            "transfer eliminated" % (cache.n_batches, cache.cached_mb, device))
+        batches = cache.batches()
+    else:
+        batches = feeder.batches()
     preview = [None]  # the first batch, for the artifacts
 
     def wrapped_batches():
@@ -137,6 +152,9 @@ def train(log_dir: str, args, cfg, device: torch.device) -> None:
             if preview[0] is None:
                 preview[0] = b
             yield b
+
+    def host(x):
+        return x.cpu().numpy() if isinstance(x, torch.Tensor) else x
 
     def griffin_lim(linear):
         wav = dsp.inv_preemphasis(
@@ -152,7 +170,7 @@ def train(log_dir: str, args, cfg, device: torch.device) -> None:
             return
         # the LONGEST utterance of the preview batch shows the most
         # alignment structure
-        i = int(np.argmax(b.input_lengths))
+        i = int(np.argmax(host(b.input_lengths)))
         data = batch_to_device(b, device)
         row = slice(i, i + 1)
         outputs, _ = model.forward_train(
@@ -167,11 +185,11 @@ def train(log_dir: str, args, cfg, device: torch.device) -> None:
         align = outputs["alignments"][0].cpu().numpy()
         base = os.path.join(log_dir, "step-%06d" % step)
         save_wav(wav, base + "-audio.wav", cfg.sample_rate)
-        text = sequence_to_text(b.inputs[i])
+        text = sequence_to_text(host(b.inputs[i]))
         # crop padding off the alignment: the real input length, and the
         # decoder steps up to the last voiced target frame
         t_in = int(b.input_lengths[i])
-        voiced = np.flatnonzero(np.abs(b.mel_targets[i]).sum(-1))
+        voiced = np.flatnonzero(np.abs(host(b.mel_targets[i])).sum(-1))
         last_frame = int(voiced[-1]) + 1 if len(voiced) else 0
         s_used = -(-last_frame // cfg.outputs_per_step)
         # teacher-forced, like the reference's training dumps
@@ -243,6 +261,7 @@ def train(log_dir: str, args, cfg, device: torch.device) -> None:
             artifact_fn=artifact_fn,
             eval_fn=eval_fn,
             restore_step=args.restore_step,
+            to_device=batch_to_device,
         )
     finally:
         batches.close()   # stops the feeder's prefetch thread
@@ -278,8 +297,9 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--cache-dir", default=None,
                         help="On-disk feature cache directory")
     parser.add_argument("--device-cache", type=int, default=0, metavar="N",
-                        help="Pin N epoch-variants of batches on the device "
-                             "(not ported yet: 0 only)")
+                        help="Hold N epochs' batches on the device, padded "
+                             "to one shape, their order reshuffled each "
+                             "epoch (no per-step host transfer)")
     parser.add_argument("--holdout", type=int, default=0, metavar="N",
                         help="Hold N evenly spaced utterances out of training "
                              "and log their teacher-forced loss every "

@@ -7,9 +7,12 @@ arguments under sqrt(2) - 1 and to its own polynomial ``log(1 + y)`` above,
 neither correctly rounded, and contracts their multiply-adds into FMAs.
 The library ``log1p`` of torch or numpy rounds differently in about 0.1% of
 the values in [0, 255], which moves a code by one step on a rounding edge.
-So the encoder evaluates XLA's arithmetic in numpy float32, with each FMA
-rounded once (:func:`_fma`). Encoding runs on the host: it sees a seed
-wav of a few thousand samples. :func:`mu_law_decode` reads a table built
+So :func:`_encode_xla` evaluates XLA's arithmetic in numpy float32, with
+each FMA rounded once (:func:`_fma`). That takes ~80 ms on the host for a
+training batch, so :func:`mu_law_encode` evaluates it only once per Q: it
+finds the Q - 1 float32 inputs where the code steps up (by bisection over
+the float32 grid) and encodes by a sorted search in that table, on the
+device that holds the audio. :func:`mu_law_decode` reads a table built
 with the C library's ``powf``, which XLA's CPU ``pow`` calls, so decoding
 equals the JAX package's too.
 """
@@ -93,20 +96,57 @@ def _xla_log1p(y: np.ndarray) -> np.ndarray:
     return np.where(np.abs(y) < _LOG1P_SMALL, small, _xla_log(y + _F32(1)))
 
 
-def mu_law_encode(audio, quantization_channels: int) -> torch.Tensor:
-    """float waveform in [-1, 1] -> int32 codes in [0, Q-1] (a tensor on
-    ``audio``'s device; computed on the host)."""
-    device = audio.device if isinstance(audio, torch.Tensor) else "cpu"
-    if isinstance(audio, torch.Tensor):
-        audio = audio.detach().cpu().numpy()
+def _encode_xla(audio: np.ndarray, quantization_channels: int) -> np.ndarray:
+    """XLA's CPU arithmetic of the JAX package's ``mu_law_encode``:
+    float32 waveform -> int32 codes in [0, Q-1], in numpy."""
     audio = np.asarray(audio, _F32)
     mu = _F32(quantization_channels - 1)
     magnitude = (_xla_log1p(np.minimum(np.abs(audio), _F32(1)) * mu)
                  / _xla_log1p(np.array([mu]))[0])
     signal = np.sign(audio) * magnitude
     # Quantize: shift to [0, mu], round half up via +0.5 then truncate.
-    codes = ((signal + _F32(1)) / _F32(2) * mu + _F32(0.5)).astype(np.int32)
-    return torch.from_numpy(codes).to(device)
+    return ((signal + _F32(1)) / _F32(2) * mu + _F32(0.5)).astype(np.int32)
+
+
+def _key_to_f32(key: np.ndarray) -> np.ndarray:
+    """float32 values from keys that order them as integers (the bit
+    pattern for x >= 0, minus the magnitude's pattern for x < 0)."""
+    bits = np.where(key >= 0, key, (-key) | np.int64(0x80000000))
+    return bits.astype(np.uint32).view(_F32)
+
+
+@functools.lru_cache(maxsize=None)
+def _code_edges(quantization_channels: int) -> np.ndarray:
+    """[Q-1] float32: entry c-1 is the least float32 input in [-1, 1]
+    that :func:`_encode_xla` maps to a code >= c (bisection over the
+    float32 grid; code(-1) = 0 and code(1) = Q-1)."""
+    q = quantization_channels
+    c = np.arange(1, q)
+    lo = np.full(q - 1, -int(np.array(1.0, _F32).view(np.uint32)), np.int64)
+    hi = np.full(q - 1, int(np.array(1.0, _F32).view(np.uint32)), np.int64)
+    while np.any(hi - lo > 1):
+        mid = (lo + hi) // 2
+        up = _encode_xla(_key_to_f32(mid), q) >= c
+        hi, lo = np.where(up, mid, hi), np.where(up, lo, mid)
+    return _key_to_f32(hi)
+
+
+@functools.lru_cache(maxsize=None)
+def _edge_table(quantization_channels: int, device: torch.device) -> torch.Tensor:
+    table = torch.from_numpy(_code_edges(quantization_channels))
+    if device.type == "cuda":
+        table = table.pin_memory().to(device, non_blocking=True)
+    return table
+
+
+def mu_law_encode(audio, quantization_channels: int) -> torch.Tensor:
+    """float waveform in [-1, 1] -> int32 codes in [0, Q-1], on
+    ``audio``'s device: the codes of :func:`_encode_xla`, found by a sorted
+    search among the inputs where the code steps up (the encoder is
+    monotonic; inputs past +-1 clip to the end codes, as there)."""
+    audio = torch.as_tensor(audio).to(torch.float32).contiguous()
+    table = _edge_table(quantization_channels, audio.device)
+    return torch.searchsorted(table, audio, right=True).to(torch.int32)
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,9 +1,11 @@
 """WaveNet: gated dilated causal convolutions over mu-law codes.
 
-Port of ``nspeech_tpu/models/wavenet.py`` (inference: teacher-forced
-logits and the step-by-step generator). Parameters keep the JAX
-package's tree: ``causal`` [fw, Q, R]; per layer ``filter``/``gate``
-[fw, R, DC], ``dense`` [1, DC, R], ``skip`` [1, DC, S], optional
+Port of ``nspeech_tpu/models/wavenet.py``: the training forward and loss
+(one-hot or scalar input), teacher-forced logits and the step-by-step
+generator (one-hot input only, as in JAX). Parameters keep the JAX
+package's tree: ``causal`` [fw, Q, R] (scalar input:
+[initial_filter_width, 1, R]); per layer ``filter``/``gate`` [fw, R,
+DC], ``dense`` [1, DC, R], ``skip`` [1, DC, S], optional
 ``gc_*``/``lc_*`` [1, C, DC] and biases; ``post1`` [1, S, S], ``post2``
 [1, S, Q]; ``gc_embedding`` [cardinality, gc_channels].
 
@@ -22,8 +24,10 @@ import numpy as np
 import torch
 
 from nspeech_tpu_torch.config import Config
+from nspeech_tpu_torch.dsp.mulaw import mu_law_encode
 from nspeech_tpu_torch.ops.layers import glorot_uniform
 from nspeech_tpu_torch.ops.philox import gumbel_noise
+from nspeech_tpu_torch.utils.tree import named_leaves
 
 Params = Dict[str, Any]
 
@@ -73,8 +77,7 @@ class WaveNet:
 
     def init(self, seed: int) -> Params:
         """Glorot-uniform weights drawn from ``numpy.random.default_rng(seed)``
-        (CPU tensors; move them with ``ops.layers.tree_to``). One-hot input
-        models only: the port has no scalar-input path."""
+        (CPU tensors; move them with ``ops.layers.tree_to``)."""
         rng = np.random.default_rng(seed)
         fw = self.filter_width
         R, DC, Q, S = (self.residual_channels, self.dilation_channels,
@@ -87,7 +90,10 @@ class WaveNet:
                 table = _conv_init(rng, (1, self.gc_cardinality,
                                          self.gc_channels))[0]
             params["gc_embedding"] = table
-        params["causal"] = _conv_init(rng, (fw, Q, R))
+        if self.scalar_input:
+            params["causal"] = _conv_init(rng, (self.initial_filter_width, 1, R))
+        else:
+            params["causal"] = _conv_init(rng, (fw, Q, R))
         layers = []
         for _ in self.dilations:
             lp = {
@@ -122,15 +128,29 @@ class WaveNet:
 
     @staticmethod
     def _causal_conv(x: torch.Tensor, w: torch.Tensor, dilation: int):
-        """VALID dilated causal conv as shifted-slice matmuls:
-        y_t = sum_k x_{t+k*d} @ W_k."""
+        """VALID dilated causal conv, y_t = sum_k x_{t+k*d} @ W_k: shifted
+        slice matmuls for width <= 4, else one ``conv1d`` (the scalar
+        input's wide first conv), as the JAX package splits it."""
         fw = w.shape[0]
+        if fw > 4:
+            y = torch.nn.functional.conv1d(x.transpose(1, 2),
+                                           w.permute(2, 1, 0), dilation=dilation)
+            return y.transpose(1, 2)
         t_out = x.shape[1] - dilation * (fw - 1)
         out = None
         for k in range(fw):
             term = x[:, k * dilation: k * dilation + t_out] @ w[k]
             out = term if out is None else out + term
         return out
+
+    def _network(self, params: Params, x: torch.Tensor,
+                 gc: Optional[torch.Tensor], lc: Optional[torch.Tensor]):
+        """Network input [N, T_in, C_in] -> logits [N, T_in - RF + 1, Q];
+        ``lc`` [N, T_in, lc_channels] is aligned with ``x``."""
+        x = self._causal_conv(x, params["causal"], 1)
+        shrink = (self.initial_filter_width if self.scalar_input
+                  else self.filter_width) - 1
+        return self._network_body(params, x, gc, lc, shrink)
 
     def _network_body(self, params: Params, x: torch.Tensor,
                       gc: Optional[torch.Tensor], lc: Optional[torch.Tensor],
@@ -141,7 +161,7 @@ class WaveNet:
         fw = self.filter_width
         output_width = x.shape[1] - sum(self.dilations) * (fw - 1)
         dc = self.dilation_channels
-        skips = None
+        skip_outs = []
         current = x
         for lp, dilation in zip(params["layers"], self.dilations):
             w_fg = torch.cat([lp["filter"], lp["gate"]], dim=2)
@@ -160,11 +180,17 @@ class WaveNet:
             transformed = out @ lp["dense"][0]
             if self.use_biases:
                 transformed = transformed + lp["dense_bias"]
-            skip = out[:, -output_width:, :] @ lp["skip"][0]
-            if self.use_biases:
-                skip = skip + lp["skip_bias"]
-            skips = skip if skips is None else skips + skip
+            skip_outs.append(out[:, -output_width:, :])
             current = current[:, -transformed.shape[1]:, :] + transformed
+        # The skip sum as ONE product over the layers stacked on the
+        # contraction axis, sum_l out_l @ W_l = [out_1 .. out_L] @ [W_1; ..;
+        # W_L], as JAX computes it: a per-layer sum would read and write
+        # the [N, T, S] accumulator (168 MB at the training window) once
+        # per layer, and its gradient as often.
+        skips = (torch.cat(skip_outs, dim=-1)
+                 @ torch.cat([lp["skip"][0] for lp in params["layers"]]))
+        if self.use_biases:
+            skips = skips + sum(lp["skip_bias"] for lp in params["layers"])
         h = torch.relu(skips) @ params["post1"][0]
         if self.use_biases:
             h = h + params["post1_bias"]
@@ -184,6 +210,54 @@ class WaveNet:
         if ids.numel() and not 0 <= int(ids.min()) <= int(ids.max()) < table.shape[0]:
             raise ValueError(f"gc ids {ids.tolist()} outside [0, {table.shape[0]})")
         return table[ids.to(table.device)]
+
+    # ------------------------------------------------------------------
+    # Training
+    # ------------------------------------------------------------------
+
+    def forward_train(self, params: Params, audio: torch.Tensor,
+                      gc_ids: Optional[torch.Tensor] = None,
+                      lc: Optional[torch.Tensor] = None):
+        """Waveform windows [N, T] (with speaker ids [N] and per-sample
+        ``lc`` [N, T, lc_channels]) -> (logits [N, T - RF, Q], target codes
+        [N, T - RF]): sample t+1's code is predicted from samples <= t."""
+        encoded = mu_law_encode(audio, self.quantization_channels)
+        lc_in = lc[:, :-1, :] if lc is not None else None
+        gc = self._embed_gc(params, gc_ids)
+        if self.scalar_input:
+            logits = self._network(params, audio[:, :-1, None].to(torch.float32),
+                                   gc, lc_in)
+        else:
+            logits = self._network_embedded(params, encoded[:, :-1], gc, lc_in)
+        return logits, encoded[:, self.receptive_field:]
+
+    def loss(self, logits: torch.Tensor, targets: torch.Tensor,
+             params: Optional[Params] = None,
+             l2_strength: Optional[float] = None):
+        """(loss, metrics): the mean cross-entropy (``loss``), in float32 or
+        wider; with ``l2_strength`` and ``params`` plus ``l2_strength``
+        times half the sum of squares of every leaf whose path does not
+        name ``bias`` (``l2_loss``, ``total_loss``)."""
+        q = logits.shape[-1]
+        loss = torch.nn.functional.cross_entropy(
+            logits.to(torch.promote_types(logits.dtype, torch.float32)).reshape(-1, q),
+            targets.reshape(-1).to(torch.int64))
+        metrics = {"loss": loss}
+        if l2_strength and params is not None:
+            l2 = sum(torch.sum(torch.square(w))
+                     for path, w in named_leaves(params) if "bias" not in path) * 0.5
+            metrics["l2_loss"] = l2
+            loss = loss + l2_strength * l2
+            metrics["total_loss"] = loss
+        return loss, metrics
+
+    def predict_logits(self, params: Params, codes: torch.Tensor, gc_ids=None,
+                       lc: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Full-window scoring: mu-law codes [N, T] -> logits
+        [N, T - RF + 1, Q] through the one-hot input."""
+        one_hot = torch.nn.functional.one_hot(
+            codes.to(torch.int64), self.quantization_channels).to(torch.float32)
+        return self._network(params, one_hot, self._embed_gc(params, gc_ids), lc)
 
     def _network_embedded(self, params: Params, codes: torch.Tensor,
                           gc, lc) -> torch.Tensor:

@@ -1,6 +1,6 @@
-"""Training: the Tacotron train step, optimizer and schedules, the
-training loop, checkpoints (training states and serving archives) and run
-metadata. WaveNet training is not ported yet."""
+"""Training: the Tacotron and WaveNet train steps, optimizer and
+schedules, the training loop, checkpoints (training states and serving
+archives) and run metadata."""
 
 from nspeech_tpu_torch.train.checkpoint import (  # noqa: F401
     CheckpointManager,
@@ -10,6 +10,7 @@ from nspeech_tpu_torch.train.checkpoint import (  # noqa: F401
 from nspeech_tpu_torch.train.loop import (  # noqa: F401
     TrainState,
     build_tacotron_train_step,
+    build_wavenet_train_step,
     create_state,
 )
 from nspeech_tpu_torch.train.metadata import (  # noqa: F401

@@ -1,11 +1,15 @@
-"""The Tacotron train step: port of ``nspeech_tpu/train/loop.py``.
+"""The train steps of Tacotron and WaveNet: port of
+``nspeech_tpu/train/loop.py``.
 
-One step is the teacher-forced forward in training mode, the loss, its
-gradients by autograd, the clip and Adam update of ``train/optim.py``, and
-the EMA of the parameters after the update. The JAX package's step
-rearranges the decoder's weight gradients (``ops/deferred.py``) to work
-around XLA's scan transpose; autograd computes the same gradients
-directly, so the port has no such rearrangement.
+One step is the forward in training mode (teacher-forced for a Tacotron),
+the loss, its gradients by autograd, the clip and Adam update of
+``train/optim.py``, and the EMA of the parameters after the update. The
+JAX package's Tacotron step rearranges the decoder's weight gradients
+(``ops/deferred.py``) to work around XLA's scan transpose; autograd
+computes the same gradients directly, so the port has no such
+rearrangement. A feeder batch (numpy) reaches the device through pinned
+host memory; a batch already on the device (``data/device_cache.py``)
+passes through.
 """
 
 from __future__ import annotations
@@ -37,16 +41,33 @@ class TacotronBatch(NamedTuple):
     linear_targets: torch.Tensor  # [B, T_out, F] float32
 
 
+class WaveNetDeviceBatch(NamedTuple):
+    """A ``data.wavenet_feeder.WaveNetBatch`` as tensors on the training
+    device."""
+    audio: torch.Tensor                  # [B, window] float32
+    speaker_ids: torch.Tensor            # [B] int64
+    mel: torch.Tensor                    # [B, F, M] or [B, window, M] float32
+    mel_phase: Optional[torch.Tensor]    # [B] int64, None per-sample
+
+
+def _move(x: np.ndarray, dtype, device: torch.device) -> torch.Tensor:
+    """A host array on ``device``; on CUDA through pinned memory without
+    blocking the host."""
+    t = torch.from_numpy(np.ascontiguousarray(x)).to(dtype)
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t
+
+
 def batch_to_device(batch, device) -> TacotronBatch:
     """The Tacotron fields of a ``data.feeder.Batch`` (numpy) on
-    ``device``; on CUDA through pinned host memory without blocking."""
+    ``device``. A :class:`TacotronBatch` is already there and passes."""
+    if isinstance(batch, TacotronBatch):
+        return batch
     device = torch.device(device)
 
     def move(x, dtype):
-        t = torch.from_numpy(np.ascontiguousarray(x)).to(dtype)
-        if device.type == "cuda":
-            return t.pin_memory().to(device, non_blocking=True)
-        return t
+        return _move(x, dtype, device)
 
     return TacotronBatch(move(batch.inputs, torch.int64),
                          move(batch.input_lengths, torch.int64),
@@ -57,10 +78,12 @@ def batch_to_device(batch, device) -> TacotronBatch:
 
 def create_state(model, optimizer, seed: int, ema: bool = False,
                  device="cpu") -> TrainState:
-    """Step 0: the model's ``init(seed)`` on ``device``, a fresh optimizer
+    """Step 0: the model's ``init(seed)`` on ``device`` (a model without
+    batch norm, WaveNet, gets an empty ``bn_state``), a fresh optimizer
     state and, with ``ema``, an average that starts at (a copy of) the
     params."""
-    params, bn_state = model.init(seed)
+    init = model.init(seed)
+    params, bn_state = init if isinstance(init, tuple) else (init, {})
     params = tree_map(lambda t: t.to(device), params)
     bn_state = tree_map(lambda t: t.to(device), bn_state)
     ema_params = tree_map(torch.clone, params) if ema else None
@@ -79,21 +102,45 @@ def leaf_norms(tree) -> torch.Tensor:
                         for x in tree_leaves(tree)])
 
 
+def wavenet_batch_to_device(batch, device) -> WaveNetDeviceBatch:
+    """A ``data.wavenet_feeder.WaveNetBatch`` (numpy) on ``device``. A
+    :class:`WaveNetDeviceBatch` is already there and passes."""
+    if isinstance(batch, WaveNetDeviceBatch):
+        return batch
+    device = torch.device(device)
+    return WaveNetDeviceBatch(
+        _move(batch.audio, torch.float32, device),
+        _move(batch.speaker_ids, torch.int64, device),
+        _move(batch.mel, torch.float32, device),
+        None if batch.mel_phase is None
+        else _move(batch.mel_phase, torch.int64, device))
+
+
+def _trainable(params):
+    return tree_map(lambda p: p.detach().requires_grad_(True), params)
+
+
+def _grads(loss: torch.Tensor, params):
+    """d loss / d params as a tree like ``params`` (zeros for a leaf the
+    loss does not reach)."""
+    leaves = tree_leaves(params)
+    grads = dict(zip(map(id, leaves),
+                     torch.autograd.grad(loss, leaves, allow_unused=True)))
+    return tree_map(lambda p: (torch.zeros_like(p) if grads[id(p)] is None
+                               else grads[id(p)]), params)
+
+
 def tacotron_grads(model, state: TrainState, batch: TacotronBatch,
                    generator: Optional[torch.Generator]):
     """(grads, metrics, new_bn_state) of the training loss at
     ``state.params``."""
-    params = tree_map(lambda p: p.detach().requires_grad_(True), state.params)
+    params = _trainable(state.params)
     outputs, new_bn = model.forward_train(
         params, state.bn_state, batch.inputs, batch.input_lengths,
         batch.speaker_ids, batch.mel_targets, is_training=True,
         generator=generator)
     loss, metrics = model.loss(outputs, batch.mel_targets, batch.linear_targets)
-    leaves = tree_leaves(params)
-    grads = dict(zip(map(id, leaves),
-                     torch.autograd.grad(loss, leaves, allow_unused=True)))
-    grads = tree_map(lambda p: (torch.zeros_like(p) if grads[id(p)] is None
-                                else grads[id(p)]), params)
+    grads = _grads(loss, params)
     metrics = {k: v.detach() for k, v in metrics.items()}
     return grads, metrics, new_bn
 
@@ -118,6 +165,53 @@ def build_tacotron_train_step(model, optimizer, schedule=None,
                 metrics["learning_rate"] = float(schedule(state.step))
             new_state = TrainState(
                 state.step + 1, new_params, new_bn, new_opt,
+                ema_update(state.ema_params, new_params, ema_decay))
+        return new_state, metrics
+
+    return step_fn
+
+
+def wavenet_grads(net, params, batch: WaveNetDeviceBatch, cfg,
+                  use_gc: bool = False, use_lc: bool = False,
+                  l2_strength: Optional[float] = None):
+    """(grads, metrics) of the WaveNet loss at ``params``: the conditioning
+    upsampled on the batch's device (``ops/upsample.py`` ``batch_lc``),
+    the speakers' rows of the gc table, the float32 cross-entropy plus the
+    L2 term."""
+    from nspeech_tpu_torch.ops.upsample import batch_lc
+
+    params = _trainable(params)
+    logits, targets = net.forward_train(
+        params, batch.audio, gc_ids=batch.speaker_ids if use_gc else None,
+        lc=batch_lc(batch, cfg) if use_lc else None)
+    loss, metrics = net.loss(logits, targets, params=params,
+                             l2_strength=l2_strength)
+    return _grads(loss, params), {k: v.detach() for k, v in metrics.items()}
+
+
+def build_wavenet_train_step(net, optimizer, cfg, schedule=None,
+                             use_gc: bool = False, use_lc: bool = False,
+                             l2_strength: Optional[float] = None,
+                             ema_decay: float = 0.0):
+    """``step_fn(state, batch, generator) -> (state, metrics)`` for WaveNet
+    on a :class:`WaveNetDeviceBatch`. The step is deterministic: it draws
+    nothing from ``generator``. Metrics as the Tacotron step's: ``loss``
+    (the cross-entropy; with L2 also ``l2_loss`` and ``total_loss``),
+    ``grad_norm``, ``grad_norms``, ``learning_rate``."""
+
+    def step_fn(state: TrainState, batch: WaveNetDeviceBatch, generator=None):
+        del generator
+        grads, metrics = wavenet_grads(net, state.params, batch, cfg, use_gc,
+                                       use_lc, l2_strength)
+        with torch.no_grad():
+            updates, new_opt = optimizer.update(grads, state.opt_state)
+            new_params = apply_updates(state.params, updates)
+            metrics["grad_norm"] = global_norm(grads)
+            metrics["grad_norms"] = leaf_norms(grads)
+            if schedule is not None:
+                metrics["learning_rate"] = float(schedule(state.step))
+            new_state = TrainState(
+                state.step + 1, new_params, state.bn_state, new_opt,
                 ema_update(state.ema_params, new_params, ema_decay))
         return new_state, metrics
 

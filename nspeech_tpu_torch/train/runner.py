@@ -14,7 +14,9 @@ import time
 from typing import Callable, Iterator, Optional
 
 from nspeech_tpu_torch.train.checkpoint import CheckpointManager
-from nspeech_tpu_torch.train.loop import TrainState, batch_to_device, step_generator
+import torch
+
+from nspeech_tpu_torch.train.loop import TrainState, step_generator
 from nspeech_tpu_torch.utils import ValueWindow
 from nspeech_tpu_torch.utils.infolog import log
 from nspeech_tpu_torch.utils.metrics import MetricWriter
@@ -36,9 +38,13 @@ def run_training(
     restore_step: Optional[int] = None,
     max_recoveries: int = 3,
     log_interval: int = 1,
+    *,
+    to_device: Callable,
 ) -> TrainState:
-    """Run ``step_fn`` over ``batches`` (numpy feeder batches) until
-    ``max_steps`` (or forever); returns the last state.
+    """Run ``step_fn`` over ``batches`` until ``max_steps`` (or forever);
+    returns the last state. ``to_device(batch, device)`` gives a batch as
+    ``step_fn`` takes it (``train/loop.py`` ``batch_to_device`` for a
+    Tacotron feeder's, ``wavenet_batch_to_device`` for WaveNet windows).
 
     ``artifact_fn(state, step, writer)`` runs at every checkpoint and
     ``eval_fn(state, step, writer)`` at every summary interval. With
@@ -60,7 +66,7 @@ def run_training(
             if max_steps is not None and step >= max_steps:
                 break
             start = time.time()
-            data = batch_to_device(batch, device)
+            data = to_device(batch, device)
             state, metrics = step_fn(state, data,
                                      step_generator(device, seed, step))
             step += 1
@@ -103,9 +109,13 @@ def run_training(
                                       if getattr(v, "ndim", 0) == 0})
                 hists = {k: v.cpu().numpy() for k, v in metrics.items()
                          if getattr(v, "ndim", 0) > 0}
-                hists["mel_targets"] = batch.mel_targets
-                hists["linear_targets"] = batch.linear_targets
-                writer.histograms(step, hists)
+                for name in ("mel_targets", "linear_targets"):
+                    if hasattr(batch, name):  # a Tacotron batch's targets
+                        x = getattr(batch, name)
+                        hists[name] = (x.cpu().numpy()
+                                       if isinstance(x, torch.Tensor) else x)
+                if hists:
+                    writer.histograms(step, hists)
 
             if step % checkpoint_interval == 0:
                 log("Saving checkpoint at step %d" % step)

@@ -3,7 +3,9 @@ without its TensorBoard channel (the card's machine has no TensorFlow).
 
 ``<log_dir>/metrics.jsonl`` gets one record per call: ``step``, ``time``
 and the scalars, or, for histograms, each array's mean, std, min and max,
-the same records the JAX package writes.
+the same records the JAX package writes. :meth:`MetricWriter.audio` writes
+nothing, as the JAX package's does without TensorFlow: the wav file on
+disk is the copy.
 """
 
 from __future__ import annotations
@@ -41,6 +43,9 @@ class MetricWriter:
             rec[k + "/min"] = float(a.min())
             rec[k + "/max"] = float(a.max())
         self._write(rec)
+
+    def audio(self, step: int, tag: str, wav, sample_rate: int) -> None:
+        """The JAX package's TensorBoard audio summary: a no-op here."""
 
     def close(self) -> None:
         self._jsonl.close()

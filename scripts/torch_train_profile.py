@@ -1,6 +1,7 @@
-"""Where a Tacotron-2 training step of the port goes, on one CUDA card.
+"""Where a training step of the port goes, on one CUDA card.
 
-    python3 scripts/torch_train_profile.py
+    python3 scripts/torch_train_profile.py                  # Tacotron-2
+    python3 scripts/torch_train_profile.py --model wavenet  # the vocoder
 
 Run from the repository root on a machine with the card. It writes the
 synthetic corpus of ``chip_smoke.py``'s training phase into a temporary
@@ -22,10 +23,19 @@ directory and prints:
    steps): its wall time, then the same step under ``torch.profiler``:
    the device time by operation, the host time by operation, the count
    of kernel launches and the device's busy share of the step.
+
+With ``--model wavenet`` it does the same for the vocoder at the repo's
+recipe (``chip_smoke.WN_HPARAMS``: the ``wavenet`` preset, lc 80, gc 16):
+``chip_smoke.wavenet_card_vs_cpu`` on 8 windows of 5,117 + 2,048 samples
+of the corpus (batch 1), with the post-net relu masks that differ between
+the card and the CPU; then, at batch 4 windows of 5,117 + 20,480 samples,
+the wall time of 5 warm steps (after 2 warm-up steps), the peak memory,
+and one step under ``torch.profiler`` as above.
 """
 
 from __future__ import annotations
 
+import argparse
 import os
 import sys
 import tempfile
@@ -42,7 +52,9 @@ from nspeech_tpu_torch.data.feeder import DataFeeder  # noqa: E402
 from nspeech_tpu_torch.models.tacotron2 import Tacotron2  # noqa: E402
 from nspeech_tpu_torch.train.loop import (batch_to_device,  # noqa: E402
                                           build_tacotron_train_step,
-                                          create_state, step_generator)
+                                          build_wavenet_train_step,
+                                          create_state, step_generator,
+                                          wavenet_batch_to_device)
 from nspeech_tpu_torch.train.optim import make_optimizer  # noqa: E402
 from nspeech_tpu_torch.utils.tree import named_leaves, tree_leaves, tree_map  # noqa: E402
 
@@ -175,9 +187,88 @@ def gradient_errors(items) -> None:
               f"{abs(ug - uc) / uc:.2e}")
 
 
-def profile_step(corpus) -> None:
+def print_profile(step, state, data, step_ms: float) -> None:
+    """One ``step(state, data)`` under ``torch.profiler``: device time and
+    host time by operation, launches, and the kernel time's share of
+    ``step_ms``, the step's unprofiled wall time (the profiler's own
+    start-up stretches the profiled step's wall time)."""
     from torch.profiler import ProfilerActivity, profile
 
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        state, m = step(state, data, step_generator("cuda", 0, 3))
+        float(m["loss"])
+        torch.cuda.synchronize()
+    ka = prof.key_averages()
+    kernels = [e for e in ka if e.device_type.name == "CUDA"]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    print(f"device busy {busy:.1f} ms (sum of kernel times) in the profiled "
+          f"step, {busy / step_ms:.1%} of the unprofiled {step_ms:.1f} ms; kernel "
+          f"launches {sum(e.count for e in kernels)}")
+    print(ka.table(sort_by="self_device_time_total", row_limit=15,
+                   max_name_column_width=50))
+    print(ka.table(sort_by="cpu_time_total", row_limit=12,
+                   max_name_column_width=50))
+
+
+def wavenet_gradient_errors(corpus, n_windows: int = 8) -> None:
+    from nspeech_tpu_torch.data.wavenet_feeder import WaveNetFeeder
+    from nspeech_tpu_torch.models.wavenet import WaveNet
+    from nspeech_tpu_torch.ops.upsample import batch_lc
+
+    cfg = chip_smoke.wavenet_cfg(
+        f",batch_size=1,sample_size={chip_smoke.WN_CHECK_WINDOW},"
+        "gc_category_cardinality=1")
+    net = WaveNet(cfg)
+    stream = WaveNetFeeder({"ljspeech": corpus}, net.receptive_field, cfg).batches()
+    for i in range(n_windows):
+        batch = next(stream)
+        masks = {}
+        for dev in ("cpu", "cuda"):
+            params = create_state(net, make_optimizer(cfg, "wavenet")[0], 0,
+                                  device=dev).params
+            data = wavenet_batch_to_device(batch, dev)
+            with torch.no_grad(), ReluMasks() as m:
+                net.forward_train(params, data.audio, data.speaker_ids,
+                                  batch_lc(data, cfg))
+            masks[dev] = m
+        total, _ = relu_flips(masks["cpu"], masks["cuda"])
+        n_relu = sum(x.numel() for x in masks["cpu"].masks)
+        good, line = chip_smoke.wavenet_agreement(chip_smoke.wavenet_card_vs_cpu(batch))
+        print(f"window {i}: post-net relu masks card/cpu {total} of {n_relu} differ; "
+              f"{line} -> {'within' if good else 'OUTSIDE'} the smoke's tolerances")
+
+
+def profile_wavenet(corpus) -> None:
+    from nspeech_tpu_torch.data.wavenet_feeder import WaveNetFeeder
+    from nspeech_tpu_torch.models.wavenet import WaveNet
+
+    cfg = chip_smoke.wavenet_cfg(",gc_category_cardinality=1")
+    net = WaveNet(cfg)
+    opt, sched = make_optimizer(cfg, "wavenet")
+    step = build_wavenet_train_step(net, opt, cfg, sched, use_gc=True, use_lc=True)
+    state = create_state(net, opt, 0, device="cuda")
+    batch = next(WaveNetFeeder({"ljspeech": corpus}, net.receptive_field,
+                               cfg).batches())
+    data = wavenet_batch_to_device(batch, "cuda")
+    for i in range(2):
+        state, m = step(state, data)
+        float(m["loss"])
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for i in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, data)
+        float(m["loss"])
+        times.append(time.perf_counter() - t0)
+    print(f"wavenet step at batch {cfg.batch_size}, windows of "
+          f"{data.audio.shape[1]} samples: {', '.join(f'{t * 1e3:.1f}' for t in times)} "
+          f"ms (5 warm steps); peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    print_profile(step, state, data, sorted(times)[2] * 1e3)
+
+
+def profile_step(corpus) -> None:
     cfg = load_config("taco2")
     batches = list(DataFeeder({"ljspeech": corpus}, cfg, seed=0).epoch_batches(0))
     longest = max(batches, key=lambda b: b.mel_targets.shape[1])
@@ -197,22 +288,13 @@ def profile_step(corpus) -> None:
     print(f"step at batch {data.mel_targets.shape[0]}, T_in "
           f"{data.inputs.shape[1]}, T_out {data.mel_targets.shape[1]}: "
           f"{wall * 1e3:.1f} ms")
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        state, m = step(state, data, step_generator("cuda", 0, 3))
-        float(m["loss"])
-        torch.cuda.synchronize()
-    ka = prof.key_averages()
-    kernels = [e for e in ka if e.device_type.name == "CUDA"]
-    busy = sum(e.self_device_time_total for e in kernels) / 1e3
-    print(f"device busy {busy:.1f} ms (sum of kernel times) in the profiled "
-          f"step; kernel launches {sum(e.count for e in kernels)}")
-    print(ka.table(sort_by="self_device_time_total", row_limit=15,
-                   max_name_column_width=50))
-    print(ka.table(sort_by="cpu_time_total", row_limit=12,
-                   max_name_column_width=50))
+    print_profile(step, state, data, wall * 1e3)
 
 
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--model", default="taco2", choices=["taco2", "wavenet"])
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         print("no CUDA device: this script runs on the card", file=sys.stderr)
         return 1
@@ -221,6 +303,10 @@ def main() -> int:
     print(chip_smoke.card_line())
     with tempfile.TemporaryDirectory() as tmp:
         corpus = chip_smoke.write_corpus(os.path.join(tmp, "corpus"))
+        if args.model == "wavenet":
+            wavenet_gradient_errors(corpus)
+            profile_wavenet(corpus)
+            return 0
         gradient_errors(load_items({"ljspeech": corpus}))
         profile_step(corpus)
     return 0

@@ -10,7 +10,10 @@ the EMA within 3e-3 relative in 2-norm, each leaf within 0.1 of its
 largest entry, a relu or an L1 residual within float32 rounding of 0
 passing its gradient on one device only; in float64 each leaf within
 1e-9 of its largest entry, a conv bias that feeds batch norm measured
-against its kernel's gradient). They skip without a CUDA device.
+against its kernel's gradient), and one WaveNet training step at the
+vocoder recipe's widths on one window the same way
+(``chip_smoke.wavenet_agreement``, its tolerances ``WN_*`` there). They
+skip without a CUDA device.
 
 Unlike the other ``test_torch_*`` files this one imports no JAX, so that it
 runs where only PyTorch is installed:
@@ -421,4 +424,20 @@ def test_train_step_on_card_matches_cpu(cuda, tmp_path, data):
     else:
         batch = random_batch(0)
     good, line = step_agreement(card_vs_cpu_step(batch))
+    assert good, line
+
+
+@pytest.mark.gpu
+def test_wavenet_train_step_on_card_matches_cpu(cuda, tmp_path):
+    """``chip_smoke.py``'s check of the vocoder's step: one window of the
+    synthetic corpus at the recipe's widths, batch 1."""
+    from chip_smoke import (WN_CHECK_WINDOW, wavenet_agreement, wavenet_card_vs_cpu,
+                            wavenet_cfg, write_corpus)
+    from nspeech_tpu_torch.data.wavenet_feeder import WaveNetFeeder
+
+    corpus = write_corpus(str(tmp_path / "corpus"), n=4)
+    cfg = wavenet_cfg(f",batch_size=1,sample_size={WN_CHECK_WINDOW}")
+    batch = next(WaveNetFeeder({"ljspeech": corpus}, WaveNet(cfg).receptive_field,
+                               cfg).batches())
+    good, line = wavenet_agreement(wavenet_card_vs_cpu(batch))
     assert good, line

@@ -1,21 +1,30 @@
-"""The port's trainer end to end on the CPU (port only, tiny widths, the
-synthetic corpus): ``python -m nspeech_tpu_torch.cli.train`` writes
-checkpoints that resume and serve, the checkpoint manager's retention
-policy and EMA toggling, the explosion guard, the holdout loss, and the
-options whose modules are not ported yet exiting with their ROADMAP item.
+"""The port's trainers end to end on the CPU (tiny widths, the synthetic
+corpus): ``python -m nspeech_tpu_torch.cli.train`` writes checkpoints that
+resume and serve, also from batches held by ``--device-cache``; the
+checkpoint manager's retention policy and EMA toggling, the explosion
+guard, the holdout loss, and the options whose modules are not ported yet
+exiting with their ROADMAP item. ``python -m
+nspeech_tpu_torch.cli.train_wavenet`` trains, resumes and writes a
+checkpoint that ``cli.generate_wavenet --device cpu`` serves, with the
+``config.json`` that the JAX package's ``train_wavenet.py`` writes for the
+same corpus (the config after the start-up mutations and the speaker
+map); ``--gta-dir`` without local conditioning exits.
 """
 
 import json
 import os
 import shutil
+import sys
 from typing import NamedTuple
 
 import numpy as np
 import pytest
 import torch
 
+from nspeech_tpu_torch.cli import generate_wavenet as gen_cli
 from nspeech_tpu_torch.cli import synthesize as synth_cli
 from nspeech_tpu_torch.cli import train as train_cli
+from nspeech_tpu_torch.cli import train_wavenet as wn_cli
 from nspeech_tpu_torch.config import load_config
 from nspeech_tpu_torch.dsp.wavio import load_wav
 from nspeech_tpu_torch.serving import Synthesizer
@@ -34,6 +43,9 @@ TINY = ("batch_size=2,batch_group_size=2,max_iters=6,griffin_lim_iters=3,"
         "encoder_conv_channels=32,attention_dim=32,postnet_conv_channels=32,"
         "expand_conv_channels=32,decoder_lstm_units=32,encoder_lstm_units=16,"
         "expand_lstm_units=16,embedding_dim=32")
+TINY_WN = ("batch_size=2,sample_size=512,dilations_length=4,dilations_depth=2,"
+           "residual_channels=8,dilation_channels=8,skip_channels=16,"
+           "quantization_channels=128,lc_channels=80,gc_channels=4")
 TINY1 = ("batch_size=2,batch_group_size=2,max_iters=6,griffin_lim_iters=3,"
          "encoder_cbhg_banks=2,post_cbhg_banks=2,attention_dim=32,"
          "decoder_dim=32,embedding_dim=32")
@@ -211,7 +223,7 @@ def test_explosion_guard_restores_then_gives_up(tmp_path, capsys):
     final = run_training(str(tmp_path / "a"), mgr, tiny_state(), step_fn,
                          fake_batches(), torch.device("cpu"), 0,
                          checkpoint_interval=2, summary_interval=100,
-                         max_steps=6)
+                         max_steps=6, to_device=lambda b, device: b)
     out = capsys.readouterr().out
     assert "Loss exploded to nan at step 3" in out
     assert "Auto-restored from checkpoint step 2 (recovery 1/3)" in out
@@ -226,15 +238,15 @@ def test_explosion_guard_restores_then_gives_up(tmp_path, capsys):
     mgr.save(0, tiny_state())
     with pytest.raises(RuntimeError, match="Loss exploded"):
         run_training(str(tmp_path / "b"), mgr, tiny_state(), always_nan,
-                     fake_batches(), torch.device("cpu"), 0, max_steps=10)
+                     fake_batches(), torch.device("cpu"), 0, max_steps=10,
+                     to_device=lambda b, device: b)
     assert "recovery 3/3" in capsys.readouterr().out
 
 
 @pytest.mark.parametrize("extra,env,match", [
-    (["--device-cache", "1"], None, "item 4.2"),
     (["--matmul-precision", "bfloat16"], None, "item 4.4"),
     (["--hparams", "compute_dtype=bfloat16"], None, "item 4.4"),
-    (["--model", "wavenet"], None, "item 4.1"),
+    (["--model", "wavenet"], None, "nspeech_tpu_torch.cli.train_wavenet"),
     ([], "2", "item 5"),
 ])
 def test_unported_options_exit_with_their_roadmap_item(corpus, tmp_path,
@@ -246,7 +258,7 @@ def test_unported_options_exit_with_their_roadmap_item(corpus, tmp_path,
             "--model", "taco2"] + extra
     with pytest.raises(SystemExit, match=match) as e:
         train_cli.main(argv)
-    assert "ROADMAP.md" in str(e.value)
+    assert "ROADMAP.md" in str(e.value) or "train_wavenet" in match
     assert not os.path.exists(tmp_path / "taco2" / "ckpt")
 
 
@@ -256,3 +268,73 @@ def test_cuda_without_a_card_exits(corpus, tmp_path):
     with pytest.raises(SystemExit, match="no CUDA device"):
         train_cli.main(["--ljspeech", corpus, "--log-dir", str(tmp_path),
                         "--model", "taco2"])
+
+
+def test_device_cache_trains(corpus, tmp_path, capsys):
+    train(corpus, tmp_path, "--max-steps", "2", "--checkpoint-interval", "2",
+          "--device-cache", "1")
+    out = capsys.readouterr().out
+    assert "Device-cached 3 batches" in out and "Step 2 " in out
+    assert os.path.exists(tmp_path / "taco2" / "ckpt" / "serving" / "2.npz")
+    assert os.path.getsize(tmp_path / "taco2" / "step-000002-align.png") > 0
+
+
+def train_wavenet(corpus, log_dir, *extra, hparams=TINY_WN):
+    wn_cli.main(["--device", "cpu", "--ljspeech", corpus, "--log-dir",
+                 str(log_dir), "--hparams", hparams] + list(extra))
+
+
+def test_wavenet_trains_resumes_and_serves(corpus, tmp_path, capsys):
+    train_wavenet(corpus, tmp_path, "--max-steps", "2", "--checkpoint-interval",
+                  "2", "--summary-interval", "1")
+    run = tmp_path / "wavenet"
+    recs = [json.loads(line) for line in open(run / "metrics.jsonl")]
+    losses = [r for r in recs if "loss" in r]
+    assert [r["step"] for r in losses] == [1, 2]
+    assert all(np.isfinite(r["loss"]) and r["learning_rate"] > 0 for r in losses)
+    assert any("grad_norms/max" in r for r in recs)
+    assert not any("mel_targets/mean" in r for r in recs)   # no Tacotron targets
+    train_wavenet(corpus, tmp_path, "--max-steps", "3", "--checkpoint-interval", "2")
+    out = capsys.readouterr().out
+    assert "Resumed from checkpoint step 2" in out and "Step 3 " in out
+    ckpt = run / "ckpt"
+    assert sorted(os.listdir(ckpt / "train")) == ["2.pt", "3.pt"]
+    mel = np.random.default_rng(0).random((9, 80), dtype=np.float32)
+    np.save(tmp_path / "mel.npy", mel)
+    wav = tmp_path / "gen" / "out.wav"
+    os.makedirs(wav.parent)
+    gen_cli.main([str(ckpt), "--device", "cpu", "--samples", "300",
+                  "--mel-npy", str(tmp_path / "mel.npy"), "--gc-id", "0",
+                  "--wav_out_path", str(wav)])
+    assert load_wav(str(wav), 20000).size == 300
+    # the JAX CLI's audio summary opens metrics.jsonl beside the wav
+    assert os.path.exists(wav.parent / "metrics.jsonl")
+
+
+def test_wavenet_config_matches_jax_trainer(corpus, tmp_path, monkeypatch):
+    import jax
+
+    import train_wavenet as jax_wn
+
+    monkeypatch.setattr(jax_wn, "run_training", lambda *a, **k: None)
+    monkeypatch.setattr(sys, "argv", [
+        "train_wavenet.py", "--platform", "cpu", "--ljspeech", corpus,
+        "--log-dir", str(tmp_path / "jax"), "--hparams", TINY_WN,
+        "--matmul-precision", "highest"])
+    before = jax.config.jax_default_matmul_precision
+    try:
+        jax_wn.main()     # writes config.json, then (patched) trains nothing
+    finally:
+        jax.config.update("jax_default_matmul_precision", before)
+    train_wavenet(corpus, tmp_path / "port", "--max-steps", "1")
+    read = lambda d: json.load(open(tmp_path / d / "wavenet" / "ckpt" / "config.json"))
+    port, ref = read("port"), read("jax")
+    assert port == ref
+    assert port["hparams"]["gc_category_cardinality"] == 1
+    assert port["speaker_map"] == [["ljspeech", "0", 0]]
+
+
+def test_gta_dir_needs_local_conditioning(corpus, tmp_path):
+    with pytest.raises(SystemExit, match="lc_channels > 0"):
+        train_wavenet(corpus, tmp_path, "--gta-dir", str(tmp_path),
+                      hparams=TINY_WN.replace("lc_channels=80", "lc_channels=0"))
