@@ -104,10 +104,30 @@
     from that checkpoint on one exported mel (CLI_SAMPLES samples, K1),
     and ``cli.train --device-cache 2`` for 2 Tacotron-2 steps from batches
     held on the card.
-12. Prints each form's time per sample (per step for the primed form)
+12. Builds the C++ audio loader (``nspeech_tpu_torch/csrc/loader.cpp``)
+    with the machine's g++ (``loader_phase``, before phase 5) and holds it
+    against the Python copies on a seeded 22,050 Hz WAV (resampled to
+    20,000 Hz; within 1e-3) and a 20,000 Hz FLAC (within 1e-6), with the
+    ms per utterance of each.
+13. Runs the bf16 compute policy (``bf16_phase``, after phase 11): which
+    arithmetic a float32 product runs under each ``--matmul-precision``
+    (a product whose low mantissa bits tell float32, TF32 and bf16
+    apart); a bf16 GEMM and a bf16 cuDNN convolution accumulating in
+    float32; Tacotron-2 teacher-forced at the published widths in bf16
+    against float32 (BF16_MEL_TOL); two ``TextToSpeech`` requests at bf16
+    (one sampler launch each, on float32 mels), one bf16 stream through
+    ``StreamingTTS`` (carried launches) and one bf16 Tacotron-1 request;
+    ``cli.train`` (Tacotron-2,
+    batch 32) and ``cli.train_wavenet`` (the recipe) for BF16_STEPS steps
+    each at ``compute_dtype=bfloat16``: float32 masters and optimizer
+    state in the checkpoint, finite losses, the first within BF16_LOSS_TOL
+    of the float32 run's first step on the same batch; then peak memory
+    (each dtype alone) and warm sec/step (steps in turns float32, bf16,
+    bf16, float32) of both models.
+14. Prints each form's time per sample (per step for the primed form)
     beside its bound, one ``{"kernels": [...]}`` line (one-shot, carried
     and primed records; ``launches`` summed over the paths of phases
-    5-11, each counted from 0 just before it) and, last, the
+    5-11 and 13, each counted from 0 just before it) and, last, the
     ``{"ok": true, "device": ...}`` line. Exits non-zero without a card
     or when any check fails.
 """
@@ -164,6 +184,12 @@ WN_NORM_TOL = 3e-3      # float32 gradient, grad_norm, update, EMA: relative 2-n
 WN_LEAF_TOL = 3e-2      # float32 gradients, of each leaf's largest entry
 PEAK_F32_FLOPS = 67e12  # H100 SXM, float32 outside the tensor cores
 PEAK_BYTES = 3.35e12    # H100 SXM HBM3
+BF16 = "compute_dtype=bfloat16"
+BF16_STEPS = 3          # steps of each bf16 CLI run
+BF16_LOSS_TOL = 2e-2    # first bf16 step's loss against the float32 step's, relative
+BF16_MEL_TOL = 0.05     # bf16 teacher-forced mels against float32 (atol and rtol, JAX's)
+LOADER_REPS = 5         # loads per file and loader when timing
+FIRST_LOSS = {}         # the float32 CLI runs' first losses, by model
 
 
 def card_line() -> str:
@@ -1408,6 +1434,7 @@ def train_phase(tmp: str):
             "--checkpoint-interval", "2", "--seed", "0"]
     text, wall, losses, peak = run_train(
         base + ["--model", "taco2", "--max-steps", str(TRAIN_STEPS)])
+    FIRST_LOSS["taco2"] = losses[0] if losses else float("nan")
     ckpt = os.path.join(logs, "taco2", "ckpt")
     files = [os.path.join(ckpt, f) for f in
              ("train/2.pt", f"train/{TRAIN_STEPS}.pt",
@@ -1656,6 +1683,7 @@ def wavenet_train_phase(tmp: str):
     text, wall, losses, peak = run_cli(
         wn_cli.main, base + ["--hparams", WN_HPARAMS, "--max-steps", str(WN_STEPS)],
         timed_build)
+    FIRST_LOSS["wavenet"] = losses[0] if losses else float("nan")
     meta = load_run_metadata(wn_ckpt) or {}
     good = (len(losses) == WN_STEPS and all(np.isfinite(losses))
             and all(os.path.exists(os.path.join(wn_ckpt, f)) for f in
@@ -1787,12 +1815,345 @@ def wavenet_train_phase(tmp: str):
     return ok, one
 
 
+def precision_probe() -> dict:
+    """What a float32 product runs under each ``--matmul-precision``: a
+    [64, 256] @ [256, 64] product of entries 1 + 2^-9 + 2^-18 and ones is
+    256.5009765625 in float32, 256.5 when the inputs are rounded to TF32
+    (10 mantissa bits) and 256 when rounded to bf16 (7 bits)."""
+    from nspeech_tpu_torch.ops.policy import MATMUL_PRECISIONS, set_matmul_precision
+
+    a = torch.full((64, 256), 1 + 2 ** -9 + 2 ** -18, device="cuda")
+    b = torch.ones(256, 64, device="cuda")
+    names = {256.5009765625: "float32", 256.5: "tf32", 256.0: "bf16"}
+    ran = {}
+    for name in MATMUL_PRECISIONS:
+        set_matmul_precision(name)
+        v = float((a @ b)[0, 0])
+        ran[name] = names.get(v, repr(v))
+    set_matmul_precision("highest")
+    return ran
+
+
+def bf16_accumulation_check() -> tuple:
+    """A bf16 GEMM at the skip product's contraction (K = 1,600) and a bf16
+    cuDNN convolution at the postnet's shape (batch 32, 512 channels, 900
+    frames, width 5) against the exact sum of the same bf16 operands: each
+    output within one bf16 rounding of its exact value plus float32
+    accumulation (2^-8 |exact| + 2^-16 sum|terms|). Returns (ok, line)."""
+    import torch.nn.functional as F
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    out = []
+    ok = True
+    a = torch.randn(2048, 1600, device="cuda", generator=g).bfloat16()
+    w = torch.randn(1600, 512, device="cuda", generator=g).bfloat16()
+    x = torch.randn(32, 512, 900, device="cuda", generator=g).bfloat16()
+    k = torch.randn(512, 512, 5, device="cuda", generator=g).bfloat16() * 0.05
+    for what, got, exact, mag in (
+            ("gemm [2048, 1600] @ [1600, 512]", a @ w,
+             a.double() @ w.double(), a.double().abs() @ w.double().abs()),
+            ("conv1d [32, 512, 900] * [512, 512, 5]", F.conv1d(x, k, padding=2),
+             F.conv1d(x.double(), k.double(), padding=2),
+             F.conv1d(x.double().abs(), k.double().abs(), padding=2))):
+        err = (got.double() - exact).abs()
+        ratio = float((err / (2 ** -8 * exact.abs() + 2 ** -16 * mag)).max())
+        good = got.dtype == torch.bfloat16 and ratio <= 1.0
+        ok &= good
+        out.append(f"{what}: worst error {ratio:.3f} of the bound")
+    return ok, "; ".join(out)
+
+
+def bf16_phase(tmp: str):
+    """The bf16 compute policy on the card (``compute_dtype=bfloat16``),
+    on ``train_phase``'s corpus. Returns (ok, one-shot launches of its
+    requests, carried launches of its stream)."""
+    import contextlib
+    import io
+    import os
+    import re
+    import statistics
+
+    from nspeech_tpu_torch.cli import train as train_cli
+    from nspeech_tpu_torch.cli import train_wavenet as wn_cli
+    from nspeech_tpu_torch.config import load_config
+    from nspeech_tpu_torch.data.corpus import load_items
+    from nspeech_tpu_torch.data.feeder import DataFeeder
+    from nspeech_tpu_torch.data.wavenet_feeder import WaveNetFeeder
+    from nspeech_tpu_torch.models.tacotron2 import Tacotron2
+    from nspeech_tpu_torch.models.wavenet import WaveNet
+    from nspeech_tpu_torch.ops.cuda import wavenet_gen
+    from nspeech_tpu_torch.models.tacotron import Tacotron1
+    from nspeech_tpu_torch.serving import (StreamingTTS, Synthesizer,
+                                           TextToSpeech, WaveNetVocoder)
+    from nspeech_tpu_torch.train.loop import (batch_to_device,
+                                              build_tacotron_train_step,
+                                              build_wavenet_train_step,
+                                              create_state, step_generator,
+                                              wavenet_batch_to_device)
+    from nspeech_tpu_torch.train.optim import make_optimizer
+    from nspeech_tpu_torch.utils.tree import tree_leaves
+
+    card = card_line()
+    phase_t0 = time.perf_counter()
+    ok = True
+    corpus = os.path.join(tmp, "corpus")
+    cache = os.path.join(tmp, "features")
+    logs = os.path.join(tmp, "logs_bf16")
+    items = load_items({"ljspeech": corpus})
+
+    ran = precision_probe()
+    good = ran["highest"] == "float32"
+    ok &= good
+    print(f"bf16 matmul precision: a float32 product ran {ran} -> "
+          f"{'ok' if good else 'FAIL'} [{card}]")
+    good, line = bf16_accumulation_check()
+    ok &= good
+    print(f"bf16 accumulation: {line} -> {'ok' if good else 'FAIL'} [{card}]")
+
+    # teacher-forced Tacotron-2 at the published widths: bf16 against
+    # float32 on the card, one feeder batch, the same seeded weights
+    cfg32, cfg16 = load_config("taco2"), load_config("taco2").parse(BF16)
+    batch = batch_to_device(next(DataFeeder(items, cfg32, cache_dir=cache)
+                                 .epoch_batches(0)), "cuda")
+    m32, m16 = Tacotron2(cfg32), Tacotron2(cfg16)
+    state = create_state(m32, make_optimizer(cfg32, "taco2")[0], 0, device="cuda")
+    mels = {}
+    with torch.no_grad():
+        for name, m in (("f32", m32), ("bf16", m16)):
+            out, _ = m.forward_train(state.params, state.bn_state, batch.inputs,
+                                     batch.input_lengths, batch.speaker_ids,
+                                     batch.mel_targets, is_training=False)
+            mels[name] = out["mel_outputs"]
+    gap = (mels["bf16"].float() - mels["f32"]).abs()
+    bound = BF16_MEL_TOL + BF16_MEL_TOL * mels["f32"].abs()
+    good = (mels["bf16"].dtype == torch.bfloat16 and bool((gap <= bound).all()))
+    ok &= good
+    print(f"bf16 taco2 teacher-forced (batch {batch.inputs.shape[0]}, T_out "
+          f"{batch.mel_targets.shape[1]}): mel max gap to float32 "
+          f"{gap.max().item():.3e} (bound {BF16_MEL_TOL} + {BF16_MEL_TOL} |mel|) "
+          f"-> {'ok' if good else 'FAIL'} [{card}]")
+    del mels, state
+
+    # two requests through TextToSpeech at bf16: float32 mels into the
+    # sampler, one launch each
+    scfg = load_config("taco2").parse(f"max_iters={MAX_ITERS}," + BF16)
+    model = Tacotron2(scfg)
+    syn = Synthesizer(scfg).set_variables(*model.init(1), model=model)
+    vcfg, net, vparams = vocoder(2)
+    tts = TextToSpeech(syn, WaveNetVocoder(vcfg).set_variables(net, vparams))
+    tts.synthesize("Warm up the half precision path.")
+    reset_launches()
+    for i, text in enumerate(["Half precision serving on one card.",
+                              "The sampler still reads float32 mels."]):
+        before = wavenet_gen.SAMPLER.launches
+        t0 = time.perf_counter()
+        wav, mel, _ = tts.synthesize(text, temperature=1.0)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        good = (wavenet_gen.SAMPLER.launches - before == 1 and mel.dtype == np.float32
+                and wav.size > 0 and bool(np.isfinite(wav).all()))
+        ok &= good
+        print(f"bf16 request {i}: {dt:.3f} s wall, mel {mel.shape} {mel.dtype}, "
+              f"wav {wav.size} samples, sampler launches "
+              f"{wavenet_gen.SAMPLER.launches - before} -> {'ok' if good else 'FAIL'} "
+              f"[{card}]")
+    # a bf16 stream (carried launches) and a bf16 Tacotron-1 request
+    stream = StreamingTTS(syn, tts.vocoder, chunk_frames=40, growth=4)
+    t0 = time.perf_counter()
+    chunks = list(stream.stream("Half precision streams as well."))
+    dt = time.perf_counter() - t0
+    good = (wavenet_gen.CARRIED_SAMPLER.launches >= 1 and len(chunks) > 0
+            and all(c.dtype == np.float32 and np.isfinite(c).all() for c in chunks))
+    ok &= good
+    print(f"bf16 stream (taco2): {dt:.3f} s wall, {len(chunks)} chunks, "
+          f"{sum(c.size for c in chunks)} samples, carried launches "
+          f"{wavenet_gen.CARRIED_SAMPLER.launches} -> {'ok' if good else 'FAIL'} "
+          f"[{card}]")
+    t1cfg = load_config("taco1").parse(f"max_iters={MAX_ITERS}," + BF16)
+    taco1 = Tacotron1(t1cfg)
+    tts1 = TextToSpeech(Synthesizer(t1cfg).set_variables(*taco1.init(3), model=taco1),
+                        tts.vocoder)
+    before = wavenet_gen.SAMPLER.launches
+    t0 = time.perf_counter()
+    wav, mel, _ = tts1.synthesize("Tacotron one in half precision.", temperature=1.0)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    good = (wavenet_gen.SAMPLER.launches - before == 1 and mel.dtype == np.float32
+            and wav.size > 0 and bool(np.isfinite(wav).all()))
+    ok &= good
+    print(f"bf16 taco1 request (cold): {dt:.3f} s wall, mel {mel.shape} {mel.dtype}, "
+          f"wav {wav.size} samples -> {'ok' if good else 'FAIL'} [{card}]")
+    launches = wavenet_gen.SAMPLER.launches
+    carried = wavenet_gen.CARRIED_SAMPLER.launches
+    del tts, tts1, syn, stream
+
+    def run_cli(main, argv):
+        out = io.StringIO()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            main(argv)
+        torch.cuda.synchronize()
+        text = out.getvalue()
+        losses = [float(x) for x in re.findall(r"loss=([-0-9.naninf]+),", text)]
+        return text, time.perf_counter() - t0, losses
+
+    def masters_f32(ckpt, step):
+        tree = torch.load(os.path.join(ckpt, "train", f"{step}.pt"), weights_only=True)
+        return all(t.dtype == torch.float32 for key in ("params", "opt_state")
+                   for t in tree_leaves(tree[key]) if isinstance(t, torch.Tensor)
+                   and t.is_floating_point())
+
+    base = ["--ljspeech", corpus, "--log-dir", logs, "--checkpoint-interval",
+            str(BF16_STEPS), "--seed", "0", "--max-steps", str(BF16_STEPS)]
+    for name, main, argv in (
+            ("taco2", train_cli.main, ["--model", "taco2", "--cache-dir", cache,
+                                       "--hparams", BF16]),
+            ("wavenet", wn_cli.main, ["--hparams", WN_HPARAMS + "," + BF16])):
+        text, wall, losses = run_cli(main, base + argv)
+        ref = FIRST_LOSS.get(name, float("nan"))
+        rel = abs(losses[0] - ref) / abs(ref) if losses else float("nan")
+        good = (len(losses) == BF16_STEPS and all(np.isfinite(losses))
+                and "compute dtype bfloat16" in text and rel <= BF16_LOSS_TOL
+                and masters_f32(os.path.join(logs, name, "ckpt"), BF16_STEPS))
+        ok &= good
+        print(f"bf16 cli {name}: losses {losses}, the first {rel:.2e} relative from "
+              f"the float32 run's first ({ref:.5f}, the same batch and init), "
+              f"float32 masters and optimizer state in train/{BF16_STEPS}.pt, "
+              f"{wall:.1f} s wall -> {'ok' if good else 'FAIL'} [{card}]")
+
+    # peak memory of each dtype alone (its first step, the other's state
+    # freed), then warm sec/step in turns float32, bf16, bf16, float32 (the
+    # host's speed drifts within a call)
+    def compare(label, make, data, gen, n):
+        peaks, states = {}, {}
+        for dtype in ("float32", "bf16"):
+            step_fn, state = make(dtype)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            state, m = step_fn(state, data, gen(state.step))
+            float(m["loss"])
+            peaks[dtype] = torch.cuda.max_memory_allocated()
+            del state
+        times = {"float32": [], "bf16": []}
+        for dtype in ("float32", "bf16"):
+            states[dtype] = make(dtype)
+        for dtype in ("float32", "bf16", "bf16", "float32"):
+            step_fn, state = states[dtype]
+            for _ in range(n):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, m = step_fn(state, data, gen(state.step))
+                float(m["loss"])
+                times[dtype].append(time.perf_counter() - t0)
+            states[dtype] = (step_fn, state)
+        del states
+        return "; ".join(
+            f"{label} {d} {statistics.median(v):.4f} s "
+            f"({', '.join(f'{x:.4f}' for x in v)}), peak {peaks[d] / 2**30:.2f} GiB"
+            for d, v in times.items())
+
+    def taco(dtype):
+        cfg = cfg16 if dtype == "bf16" else cfg32
+        model = Tacotron2(cfg)
+        opt, sched = make_optimizer(cfg, "taco2")
+        return (build_tacotron_train_step(model, opt, sched),
+                create_state(model, opt, 0, device="cuda"))
+
+    shapes = {}
+    for b in DataFeeder(items, cfg32, cache_dir=cache).epoch_batches(0):
+        shapes.setdefault(b.mel_targets.shape[1], batch_to_device(b, "cuda"))
+    rows = [compare(f"taco2 T_out {t_out}", taco, data,
+                    lambda s: step_generator("cuda", 0, s), WARM_STEPS)
+            for t_out, data in sorted(shapes.items())]
+    wcfg = {"float32": wavenet_cfg(",gc_category_cardinality=1"),
+            "bf16": wavenet_cfg(",gc_category_cardinality=1," + BF16)}
+    net = WaveNet(wcfg["float32"])
+    wbatch = wavenet_batch_to_device(next(WaveNetFeeder(
+        {"ljspeech": corpus}, net.receptive_field, wcfg["float32"]).batches()), "cuda")
+
+    def wavenet(dtype):
+        cfg = wcfg[dtype]
+        net = WaveNet(cfg)
+        opt, sched = make_optimizer(cfg, "wavenet")
+        return (build_wavenet_train_step(net, opt, cfg, sched, use_gc=True,
+                                         use_lc=True),
+                create_state(net, opt, 0, device="cuda"))
+
+    rows.append(compare(f"wavenet (batch {wcfg['bf16'].batch_size} x "
+                        f"{wcfg['bf16'].sample_size})", wavenet, wbatch,
+                        lambda s: None, 5))
+    print("bf16 vs float32 warm sec/step (median of steps in turns float32, "
+          "bf16, bf16, float32) and peak memory (each alone): "
+          + "; ".join(rows) + f" [{card}]")
+    print(f"bf16_phase took {time.perf_counter() - phase_t0:.1f} s")
+    return ok, launches, carried
+
+
+def loader_phase(tmp: str) -> bool:
+    """The C++ audio loader built with this machine's g++: a seeded 5 s
+    WAV at 22,050 Hz (resampled to 20,000 Hz) and a 5 s FLAC at 20,000 Hz
+    against the Python copies (``dsp/wavio.py``: scipy's resample_poly;
+    ``dsp/flacio.py``), within 1e-3 where the file is resampled and 1e-6
+    where it is not (the bounds of the JAX package's loader tests); ms per
+    utterance for each."""
+    import importlib.util
+    import os
+
+    from scipy.io import wavfile
+
+    from nspeech_tpu_torch import native
+    from nspeech_tpu_torch.dsp.wavio import load_wav as py_load_wav
+
+    # the repository's FLAC writer, by path (another package may own the
+    # name ``tests`` on this machine)
+    spec = importlib.util.spec_from_file_location("make_flac", os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "tests", "make_flac.py"))
+    make_flac = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(make_flac)
+
+    card = card_line()
+    t0 = time.perf_counter()
+    native.build()
+    build_s = time.perf_counter() - t0
+    rng = np.random.default_rng(5)
+    ok = True
+    lines = []
+    for name, sr, target, tol in (("wav 22050 Hz", 22050, 20000, 1e-3),
+                                  ("flac 20000 Hz", 20000, 20000, 1e-6)):
+        t = np.arange(5 * sr) / sr
+        x = (0.4 * np.sin(2 * np.pi * 220 * t) + 0.2 * np.sin(2 * np.pi * 2333 * t)
+             + 0.05 * rng.standard_normal(t.size))
+        ints = np.round(np.clip(x, -0.99, 0.99) * 32767).astype(np.int64)
+        if name.startswith("wav"):
+            path = os.path.join(tmp, "loader.wav")
+            wavfile.write(path, sr, ints.astype(np.int16))
+        else:
+            path = make_flac.write_flac(os.path.join(tmp, "loader.flac"), ints, sr)
+        ms = {}
+        for label, fn in (("native", native.load_wav), ("python", py_load_wav)):
+            t0 = time.perf_counter()
+            for _ in range(LOADER_REPS):
+                out = fn(path, target)
+            ms[label] = (time.perf_counter() - t0) / LOADER_REPS * 1e3
+            ms[label + "_out"] = out
+        gap = float(np.abs(ms["native_out"] - ms["python_out"]).max())
+        good = ms["native_out"].shape == ms["python_out"].shape and gap <= tol
+        ok &= good
+        lines.append(f"{name}: {ms['native']:.2f} ms native, {ms['python']:.2f} ms "
+                     f"python per 5 s utterance, max gap {gap:.2e} (bound {tol})")
+    print(f"loader: built with g++ in {build_s:.1f} s; " + "; ".join(lines)
+          + f" -> {'ok' if ok else 'FAIL'} [{card}]")
+    return ok
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("no CUDA device: this smoke runs on the card", file=sys.stderr)
         return 1
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    from nspeech_tpu_torch.ops.policy import set_matmul_precision
+
+    set_matmul_precision("highest")
     print(card_line())
     start = time.perf_counter()
     record = kernel_phase()
@@ -1807,6 +2168,7 @@ def main() -> int:
     record["launches"] += one
     carried["launches"] += more
     with tempfile.TemporaryDirectory() as tmp:
+        loader_ok = loader_phase(tmp)
         cli_ok, (one, primed["launches"], more) = cli_phase(tmp)
         record["launches"] += one
         carried["launches"] += more
@@ -1814,6 +2176,9 @@ def main() -> int:
         record["launches"] += one
         wn_ok, one = wavenet_train_phase(tmp)
         record["launches"] += one
+        bf16_ok, one, more = bf16_phase(tmp)
+        record["launches"] += one
+        carried["launches"] += more
     print(f"smoke took {time.perf_counter() - start:.1f} s after the card line")
     for rec in (record, carried, primed):
         for form, ms, bound in rec.pop("per_sample"):
@@ -1822,7 +2187,7 @@ def main() -> int:
     print(json.dumps({"kernels": [record, carried, primed]}))
     if not (record["checked"] and carried["checked"] and primed["checked"]
             and e2e_ok and stream_ok and taco1_ok and server_ok and cli_ok
-            and train_ok and wn_ok):
+            and train_ok and wn_ok and bf16_ok and loader_ok):
         print("FAIL", file=sys.stderr)
         return 1
     print(json.dumps({"ok": True, "device": {

@@ -20,6 +20,7 @@ import torch
 
 from nspeech_tpu_torch.cli.train import prepare_input_paths
 from nspeech_tpu_torch.data.gta import export_gta
+from nspeech_tpu_torch.ops.policy import set_matmul_precision
 
 
 def main(argv=None) -> None:
@@ -47,8 +48,7 @@ def main(argv=None) -> None:
         if not torch.cuda.is_available():
             raise SystemExit("--device cuda: no CUDA device (pass --device cpu "
                              "to export on the host)")
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
+        set_matmul_precision("highest")
 
     out_dir = args.out_dir or os.path.join(
         os.path.dirname(os.path.abspath(args.checkpoint)), "gta")

@@ -9,13 +9,15 @@ through the feeder (featurized on the host CPU, optionally cached), the
 train step of ``train/loop.py``, checkpoints under ``<log-dir>/<name>/ckpt``
 that resume (``train/<step>.pt``) and serve (``serving/<step>.npz`` and
 ``config.json`` with the speaker map, which ``cli.synthesize`` reads),
-``metrics.jsonl``, and at each checkpoint a Griffin-Lim wav and -lin, -mel
-and -align PNGs of the longest utterance of the first batch.
+``metrics.jsonl``, and at each checkpoint a Griffin-Lim wav and -align,
+-wav, -lin and -mel PNGs of the longest utterance of the first batch.
 ``--device-cache N`` holds N epochs' batches on the device
-(``data/device_cache.py``). WaveNet trains with
-``nspeech_tpu_torch.cli.train_wavenet``. Options of the JAX trainer whose
-modules the port does not have yet exit with the ``ROADMAP.md`` item that
-holds them.
+(``data/device_cache.py``). ``--hparams compute_dtype=bfloat16`` trains
+under the bf16 compute policy (``ops/policy.py``: float32 masters, bf16
+forward) and ``--matmul-precision`` sets the card's float32 products.
+WaveNet trains with ``nspeech_tpu_torch.cli.train_wavenet``. Options of
+the JAX trainer whose modules the port does not have yet exit with the
+``ROADMAP.md`` item that holds them.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ from nspeech_tpu_torch.data.device_cache import DeviceCachedBatches
 from nspeech_tpu_torch.data.feeder import DataFeeder
 from nspeech_tpu_torch.dsp.wavio import save_wav
 from nspeech_tpu_torch.models import create_model
+from nspeech_tpu_torch.ops import policy
 from nspeech_tpu_torch.text import sequence_to_text, text_to_sequence
 from nspeech_tpu_torch.text.cmudict import CMUDict
 from nspeech_tpu_torch.train.checkpoint import CheckpointManager
@@ -72,16 +75,12 @@ def check_supported(args, cfg) -> torch.device:
 
 def training_device(args, cfg) -> torch.device:
     """The device of both trainers; exits for what the port cannot train
-    yet (reduced precision, several processes) and for a missing card."""
-    if args.matmul_precision != "highest":
-        raise SystemExit(f"--matmul-precision {args.matmul_precision}: the port "
-                         "trains in float32 with TF32 off ('highest'); the "
-                         "reduced-precision policy is not ported yet "
-                         "(ROADMAP.md section 1, item 4.4)")
-    if cfg.compute_dtype != "float32":
-        raise SystemExit(f"compute_dtype={cfg.compute_dtype}: the bf16 compute "
-                         "policy is not ported yet (ROADMAP.md section 1, "
-                         "item 4.4)")
+    yet (several processes), for a compute dtype that is not a float and
+    for a missing card."""
+    try:
+        policy.compute_dtype(cfg)
+    except ValueError as e:
+        raise SystemExit(str(e))
     if int(os.environ.get("WORLD_SIZE", "1")) > 1:
         raise SystemExit("WORLD_SIZE > 1: multi-process data-parallel "
                          "training is not ported yet (ROADMAP.md section 1, "
@@ -99,14 +98,38 @@ def training_device(args, cfg) -> torch.device:
     return device
 
 
+def add_matmul_precision(parser) -> None:
+    """``--matmul-precision``, the JAX trainers' flag, on both trainers."""
+    parser.add_argument("--matmul-precision", default="highest",
+                        choices=list(policy.MATMUL_PRECISIONS),
+                        help="Products of float32 tensors on the card: 'highest' "
+                             "(float32, TF32 off; the default), "
+                             "'tensorfloat32' (TF32 matmuls and cuDNN), "
+                             "'bfloat16' (PyTorch's 'medium' float32 matmul "
+                             "precision, which runs TF32 on the H100). No "
+                             "effect on the CPU. bf16 compute is "
+                             "--hparams compute_dtype=bfloat16")
+
+
+def set_precision(args, cfg, device: torch.device) -> None:
+    """Apply ``--matmul-precision`` on the card and log it with the compute
+    dtype, as the JAX trainers log theirs."""
+    if device.type == "cuda":
+        policy.set_matmul_precision(args.matmul_precision)
+    log("matmul precision: %s (%s; pass --matmul-precision highest for "
+        "float32 products with TF32 off, the port's default), compute dtype "
+        "%s" % (args.matmul_precision,
+                "on the card" if device.type == "cuda" else "no effect on the CPU",
+                cfg.compute_dtype))
+
+
 def train(log_dir: str, args, cfg, device: torch.device) -> None:
     ckpt_dir = os.path.join(log_dir, "ckpt")
     log("Checkpoint dir: %s" % ckpt_dir)
     log("Using model: %s on %s" % (args.model, device))
     log(config.debug_string(cfg))
+    set_precision(args, cfg, device)
     if device.type == "cuda":
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
         # the feeder's thread featurizes on the host: leave a core to the
         # thread that drives the card
         torch.set_num_threads(max(1, (os.cpu_count() or 2) - 1))
@@ -177,12 +200,13 @@ def train(log_dir: str, args, cfg, device: torch.device) -> None:
             state.params, state.bn_state, data.inputs[row],
             data.input_lengths[row], data.speaker_ids[row],
             data.mel_targets[row], is_training=False)
-        lin = outputs["linear_outputs"][0]
+        # in float32 whatever the compute dtype (Griffin-Lim, numpy)
+        lin = policy.upcast(outputs["linear_outputs"][0])
         wav = griffin_lim(lin)
         wav = wav[: dsp.find_endpoint(wav, cfg)]
         lin = lin.cpu().numpy()
-        mel = outputs["mel_outputs"][0].cpu().numpy()
-        align = outputs["alignments"][0].cpu().numpy()
+        mel = policy.upcast(outputs["mel_outputs"][0]).cpu().numpy()
+        align = policy.upcast(outputs["alignments"][0]).cpu().numpy()
         base = os.path.join(log_dir, "step-%06d" % step)
         save_wav(wav, base + "-audio.wav", cfg.sample_rate)
         text = sequence_to_text(host(b.inputs[i]))
@@ -196,6 +220,7 @@ def train(log_dir: str, args, cfg, device: torch.device) -> None:
         plot.plot_alignment(align[:t_in, :s_used + 2], base + "-align.png",
                             info="%s, %s, step=%d (teacher-forced)"
                                  % (args.model, time_string(), step))
+        plot.plot_wave(wav, cfg.sample_rate, base + "-wav.png", text)
         plot.plot_specgram(lin, base + "-lin.png", "linear")
         plot.plot_specgram(mel, base + "-mel.png", "mel")
         if writer is not None:
@@ -218,7 +243,7 @@ def train(log_dir: str, args, cfg, device: torch.device) -> None:
                 fr_ids, fr_len = data.inputs[row], data.input_lengths[row]
             out = model.forward(state.params, state.bn_state, fr_ids, fr_len,
                                 data.speaker_ids[row])
-            fr_wav = griffin_lim(out["linear_outputs"][0])
+            fr_wav = griffin_lim(policy.upcast(out["linear_outputs"][0]))
             fr_steps = int(out["decoder_steps"][0])
             # UNTRIMMED audio and full-frame RMS: silence must stay audible
             # in the artifact and visible in the metric
@@ -226,7 +251,7 @@ def train(log_dir: str, args, cfg, device: torch.device) -> None:
             fr_rms = float(np.sqrt(np.mean(np.square(
                 fr_wav[: fr_steps * cfg.outputs_per_step * hop]))))
             save_wav(fr_wav, base + "-freerun.wav", cfg.sample_rate)
-            plot.plot_alignment(out["alignments"][0].cpu().numpy()[:t_in, :fr_steps],
+            plot.plot_alignment(policy.upcast(out["alignments"][0]).cpu().numpy()[:t_in, :fr_steps],
                                 base + "-freerun-align.png")
             if writer is not None:
                 writer.scalars(step, {"freerun_rms": fr_rms,
@@ -316,9 +341,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--device", default="cuda",
                         help="cuda (one card) or cpu")
-    parser.add_argument("--matmul-precision", default="highest",
-                        choices=["bfloat16", "tensorfloat32", "highest"],
-                        help="Only 'highest' (float32, TF32 off) is ported")
+    add_matmul_precision(parser)
     return parser
 
 

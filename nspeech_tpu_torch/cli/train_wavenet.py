@@ -23,7 +23,9 @@ import os
 import torch
 
 from nspeech_tpu_torch import config
-from nspeech_tpu_torch.cli.train import prepare_input_paths, training_device
+from nspeech_tpu_torch.cli.train import (add_matmul_precision,
+                                         prepare_input_paths, set_precision,
+                                         training_device)
 from nspeech_tpu_torch.data.wavenet_feeder import WaveNetFeeder
 from nspeech_tpu_torch.models import create_model
 from nspeech_tpu_torch.train.checkpoint import CheckpointManager
@@ -53,9 +55,7 @@ def train_wavenet(log_dir: str, args, cfg, device: torch.device) -> None:
     log("Checkpoint dir: %s" % ckpt_dir)
     log("Using model: %s on %s" % (args.model, device))
     log(config.debug_string(cfg))
-    if device.type == "cuda":
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
+    set_precision(args, cfg, device)
 
     # the model first: the feeder needs the receptive field
     net = create_model(args.model, cfg)
@@ -136,9 +136,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--device", default="cuda",
                         help="cuda (one card) or cpu")
-    parser.add_argument("--matmul-precision", default="highest",
-                        choices=["bfloat16", "tensorfloat32", "highest"],
-                        help="Only 'highest' (float32, TF32 off) is ported")
+    add_matmul_precision(parser)
     return parser
 
 

@@ -1,13 +1,12 @@
 """Per-utterance features with an on-disk cache: port of
 ``nspeech_tpu/data/features.py``.
 
-Load (``dsp/wavio.py``: WAV, or FLAC by its magic bytes), trim
-(``dsp/trim.py``), then the linear and mel spectrograms of
-``dsp/audio.py``, on the host CPU. A cache directory holds one ``.npz``
-per utterance (``wav``, ``linear``, ``mel``) under the JAX package's key,
-so either package reads the other's cache. The JAX package loads through
-its native C++ loader when that is built and through the same wav/FLAC
-code otherwise; the port has only the latter.
+Load (``native.load_wav``: the C++ loader's WAV or FLAC decoding and
+polyphase resampling, as the JAX package loads), trim (``dsp/trim.py``),
+then the linear and mel spectrograms of ``dsp/audio.py``, on the host CPU.
+A cache directory holds one ``.npz`` per utterance (``wav``, ``linear``,
+``mel``) under the JAX package's key, so either package reads the other's
+cache.
 """
 
 from __future__ import annotations
@@ -25,7 +24,7 @@ import torch
 from nspeech_tpu_torch.config import Config
 from nspeech_tpu_torch.dsp.audio import spectrograms
 from nspeech_tpu_torch.dsp.trim import trim_wav
-from nspeech_tpu_torch.dsp.wavio import load_wav
+from nspeech_tpu_torch import native
 
 
 class Utterance(NamedTuple):
@@ -63,7 +62,7 @@ def process_utterance(wav_path: str, cfg: Config,
                 return Utterance(utt_id, z["wav"], z["linear"], z["mel"],
                                  int(z["linear"].shape[0]))
 
-    wav = trim_wav(load_wav(wav_path, cfg.sample_rate))
+    wav = trim_wav(native.load_wav(wav_path, cfg.sample_rate))
     linear, mel = spectrograms(wav, cfg)
 
     if cache_dir:
@@ -80,6 +79,7 @@ def build_from_paths(wav_paths, cfg: Config, cache_dir: Optional[str] = None,
     (each on one CPU thread) when more than one."""
     if num_workers <= 1:
         return [process_utterance(p, cfg, cache_dir) for p in wav_paths]
+    native.build()   # once here, not in every worker at once
     with ProcessPoolExecutor(max_workers=num_workers,
                              mp_context=mp.get_context("spawn"),
                              initializer=torch.set_num_threads,

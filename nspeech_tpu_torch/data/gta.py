@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from nspeech_tpu_torch.config import Config, stft_params
+from nspeech_tpu_torch.ops.policy import upcast
 
 MANIFEST_FILE = "manifest.json"
 
@@ -92,8 +93,8 @@ def export_gta(
     from nspeech_tpu_torch.data.corpus import build_speaker_map, load_items
     from nspeech_tpu_torch.dsp.audio import spectrograms
     from nspeech_tpu_torch.dsp.trim import trim_silence
-    from nspeech_tpu_torch.dsp.wavio import load_wav
     from nspeech_tpu_torch.models import WaveNet, create_model
+    from nspeech_tpu_torch.native import load_wav
     from nspeech_tpu_torch.text import text_to_sequence
     from nspeech_tpu_torch.text.symbols import PAD_ID
     from nspeech_tpu_torch.train.checkpoint import load_serving_params
@@ -166,7 +167,7 @@ def export_gta(
                 params, bn_state, *(torch.from_numpy(x).to(device)
                                     for x in (ids, lengths, spk, mels)),
                 is_training=False)
-        out = outputs["mel_outputs"].cpu().numpy()
+        out = upcast(outputs["mel_outputs"]).cpu().numpy()
         for b, (idx, _seq, mel) in enumerate(chunk):
             wav_path = items[idx][0]
             path = gta_path(out_dir, wav_path)

@@ -1,7 +1,8 @@
 """Host input pipeline for WaveNet training: port of
 ``nspeech_tpu/data/wavenet_feeder.py``.
 
-Each utterance is silence-trimmed (``dsp/trim.py`` ``trim_silence`` at
+Each utterance is read by the C++ loader (``native.load_wav``, as the
+JAX package reads it), silence-trimmed (``dsp/trim.py`` ``trim_silence`` at
 ``silence_threshold``), left-padded by the receptive field and cut into
 windows of ``receptive_field + sample_size`` samples with a hop of
 ``sample_size``, so consecutive windows overlap by the receptive field.
@@ -27,7 +28,7 @@ from nspeech_tpu_torch.config import Config, stft_params
 from nspeech_tpu_torch.data.corpus import Item, build_speaker_map, load_items
 from nspeech_tpu_torch.dsp.audio import spectrograms
 from nspeech_tpu_torch.dsp.trim import trim_silence
-from nspeech_tpu_torch.dsp.wavio import load_wav
+from nspeech_tpu_torch.native import load_wav
 
 
 class WaveNetBatch(NamedTuple):

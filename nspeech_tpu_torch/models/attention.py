@@ -17,6 +17,7 @@ import torch
 
 from nspeech_tpu_torch.ops.layers import (Params, conv1d, dense, glorot_uniform,
                                           init_conv1d, init_dense)
+from nspeech_tpu_torch.ops.policy import upcast
 
 ATTENTION_TYPES = (
     "bah", "bah_mon", "bah_norm", "luong", "luong_scaled", "location_sensitive",
@@ -57,10 +58,10 @@ def prepare_memory(params: Params, memory: torch.Tensor) -> torch.Tensor:
 
 
 def initial_alignments(attention_type: str, batch: int, t_in: int,
-                       device) -> torch.Tensor:
-    """The decoder's first previous alignment: monotonic attention starts
-    on position 0, the others from zeros."""
-    a = torch.zeros(batch, t_in, device=device)
+                       device, dtype: torch.dtype = None) -> torch.Tensor:
+    """The decoder's first previous alignment (in the compute dtype):
+    monotonic attention starts on position 0, the others from zeros."""
+    a = torch.zeros(batch, t_in, device=device, dtype=dtype)
     if attention_type == "bah_mon":
         a[:, 0] = 1.0
     return a
@@ -78,19 +79,26 @@ def window_mask(prev_alignments: torch.Tensor, mask: Optional[torch.Tensor],
 
 
 def _masked_softmax(score: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """Softmax over the inputs, normalized in float32 under the bf16
+    policy and returned in the score's dtype."""
+    s = upcast(score)
     if mask is not None:
-        score = score.masked_fill(~mask, float("-inf"))
-    return torch.softmax(score, dim=-1)
+        s = s.masked_fill(~mask, float("-inf"))
+    return torch.softmax(s, dim=-1).to(score.dtype)
 
 
 def _monotonic_alignments(p_choose: torch.Tensor,
                           previous: torch.Tensor) -> torch.Tensor:
     """Raffel et al.'s parallel monotonic update: the clipped exclusive
-    cumprod of (1 - p), in float32."""
+    cumprod of (1 - p), in float32 (its clipping floors sit far below
+    bf16's resolution), returned in the compute dtype."""
+    out_dtype = previous.dtype
+    p_choose, previous = upcast(p_choose), upcast(previous)
     cumprod_1mp = (torch.cumprod(1.0 - p_choose, dim=-1)
                    / torch.clamp(1.0 - p_choose, 1e-10, 1.0))
     cumprod_1mp = torch.clamp(cumprod_1mp, 1e-10, 1.0)
-    return p_choose * cumprod_1mp * torch.cumsum(previous / cumprod_1mp, dim=-1)
+    return (p_choose * cumprod_1mp
+            * torch.cumsum(previous / cumprod_1mp, dim=-1)).to(out_dtype)
 
 
 def attention_step(params: Params, attention_type: str, query: torch.Tensor,

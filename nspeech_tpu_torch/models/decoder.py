@@ -23,12 +23,21 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
+from nspeech_tpu_torch.utils.tree import tree_leaves
+
 
 def _device(tree) -> torch.device:
     """The device of the first tensor in a nested tuple/list."""
     if isinstance(tree, torch.Tensor):
         return tree.device
     return _device(next(iter(tree)))
+
+
+def _float_dtype(carry) -> torch.dtype:
+    """The decode's compute dtype, read off the carry's first float leaf
+    (the GO frame takes it; torch's default without one)."""
+    return next((t.dtype for t in tree_leaves(carry) if t.is_floating_point()),
+                None)
 
 
 def teacher_frames(mel_targets: torch.Tensor, r: int) -> torch.Tensor:
@@ -89,7 +98,8 @@ def start_autoregressive(
     device = _device(carry0)
     if initial_finished is None:
         initial_finished = torch.zeros(batch, dtype=torch.bool, device=device)
-    cell, (out, align) = step(carry0, torch.zeros(batch, num_mels, device=device))
+    go = torch.zeros(batch, num_mels, device=device, dtype=_float_dtype(carry0))
+    cell, (out, align) = step(carry0, go)
     out = torch.where(initial_finished[:, None], torch.zeros_like(out), out)
     stop = _stopped(out, stop_threshold)
     steps = torch.where(initial_finished, 0,

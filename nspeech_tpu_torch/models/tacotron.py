@@ -12,7 +12,8 @@ composition, not the paper's). The decoder frames are the mel: there is
 no postnet, so the model has no ``postnet_residual`` and the stream needs
 no postnet halo. The streaming hooks (:meth:`Tacotron1.attention_context`,
 :meth:`Tacotron1.make_eval_step`) are the pieces :meth:`Tacotron1.forward`
-is built from, as in :mod:`nspeech_tpu_torch.models.tacotron2`.
+is built from, as in :mod:`nspeech_tpu_torch.models.tacotron2`, with the
+same entry casts to ``compute_dtype`` (``ops/policy.py``).
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ from nspeech_tpu_torch.models import attention as A
 from nspeech_tpu_torch.models import decoder as D
 from nspeech_tpu_torch.models import modules as M
 from nspeech_tpu_torch.ops import layers as L
+from nspeech_tpu_torch.ops import policy as P
 from nspeech_tpu_torch.text.symbols import symbols
 
 GRU_UNITS = 128   # the CBHGs' GRU width, fixed by the reference
@@ -118,13 +120,20 @@ class Tacotron1:
 
         return step
 
+    def _cast(self, tree):
+        return P.entry_cast(tree, P.compute_dtype(self.cfg))
+
     def _decoder_carry0(self, batch: int, t_in: int, device):
         cfg = self.cfg
-        return (torch.zeros(batch, cfg.attention_dim, device=device),
-                torch.zeros(batch, self._memory_dim, device=device),
-                A.initial_alignments(cfg.attention_type, batch, t_in, device),
-                torch.zeros(batch, cfg.decoder_dim, device=device),
-                torch.zeros(batch, cfg.decoder_dim, device=device))
+        dtype = P.carry_dtype(cfg)
+
+        def z(*shape):
+            return torch.zeros(*shape, device=device, dtype=dtype)
+
+        return (z(batch, cfg.attention_dim), z(batch, self._memory_dim),
+                A.initial_alignments(cfg.attention_type, batch, t_in, device,
+                                     dtype),
+                z(batch, cfg.decoder_dim), z(batch, cfg.decoder_dim))
 
     # -- streaming hooks ------------------------------------------------------
 
@@ -156,15 +165,15 @@ class Tacotron1:
         """Encoder side of inference: ``(step_ctx, decoder carry0)`` for
         :meth:`make_eval_step` and the decoder's chunked decode."""
         n, t_in = text_inputs.shape
-        ctx, _ = self._encode(params, state, text_inputs, input_lengths,
-                              speaker_ids, False)
+        ctx, _ = self._encode(self._cast(params), state, text_inputs,
+                              input_lengths, speaker_ids, False)
         return ctx, self._decoder_carry0(n, t_in, text_inputs.device)
 
     def make_eval_step(self, params, step_ctx):
         """The decoder step ``(carry, x) -> (carry, (out, align))`` over
         :meth:`attention_context`'s ``step_ctx``."""
         keys_mem, enc_out, mask, spk = step_ctx
-        return self._make_step(params, keys_mem, enc_out, mask, spk)
+        return self._make_step(self._cast(params), keys_mem, enc_out, mask, spk)
 
     @torch.no_grad()
     def forward(self, params, state, text_inputs: torch.Tensor,
@@ -174,6 +183,7 @@ class Tacotron1:
         linear_outputs [N, T, F], alignments [N, T_in, S], decoder_steps [N].
         Rows of length 0 are padding: finished from the start."""
         cfg = self.cfg
+        params = self._cast(params)
         ctx, carry0 = self.attention_context(params, state, text_inputs,
                                              input_lengths, speaker_ids)
         outs, aligns, steps = D.scan_autoregressive(
@@ -198,6 +208,8 @@ class Tacotron1:
         returns ``(outputs, new_bn_state)``."""
         cfg = self.cfg
         n, t_in = text_inputs.shape
+        params = self._cast(params)
+        mel_targets = self._cast(mel_targets)
         ctx, enc_state = self._encode(params, state, text_inputs,
                                       input_lengths, speaker_ids, is_training,
                                       generator)
@@ -235,7 +247,9 @@ def tacotron_loss(cfg, outputs, mel_targets, linear_targets, priority_hz):
     penalty when the forward computed one. Metrics: ``loss``,
     ``loss_mel``, ``loss_linear``, ``attention_sharpness`` (the mean peak
     alignment weight per decoder step; collapsed attention drops it toward
-    1/T_in) and ``loss_guided_attention`` when on."""
+    1/T_in) and ``loss_guided_attention`` when on. Computed in float32
+    (or wider) whatever the compute dtype."""
+    outputs = {k: P.upcast(v) for k, v in outputs.items()}
     mel_loss = torch.mean(torch.abs(mel_targets - outputs["mel_outputs"]))
     l1 = torch.abs(linear_targets - outputs["linear_outputs"])
     n_priority = int(priority_hz / (cfg.sample_rate * 0.5) * cfg.num_freq)

@@ -12,7 +12,9 @@ sampling, guided attention) and of the holdout loss, and
 (:meth:`Tacotron2.attention_context`, :meth:`Tacotron2.make_eval_step`,
 :meth:`Tacotron2.postnet_residual`) are the pieces :meth:`forward` is
 built from, so the one-shot path and the stream share one encoder, one
-decoder step and one postnet.
+decoder step and one postnet. Each entry casts the parameters (and the
+teacher frames) to ``compute_dtype`` (``ops/policy.py``); the outputs come
+out in it and :meth:`loss` computes in float32.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from nspeech_tpu_torch.models import decoder as D
 from nspeech_tpu_torch.models import modules as M
 from nspeech_tpu_torch.models.tacotron import tacotron_loss
 from nspeech_tpu_torch.ops import layers as L
+from nspeech_tpu_torch.ops import policy as P
 from nspeech_tpu_torch.text.symbols import symbols
 
 
@@ -118,15 +121,20 @@ class Tacotron2:
 
         return step
 
+    def _cast(self, tree):
+        return P.entry_cast(tree, P.compute_dtype(self.cfg))
+
     def _decoder_carry0(self, batch: int, t_in: int, device):
         cfg = self.cfg
+        dtype = P.carry_dtype(cfg)
 
         def z(*shape):
-            return torch.zeros(*shape, device=device)
+            return torch.zeros(*shape, device=device, dtype=dtype)
 
         return ((z(batch, cfg.attention_dim), z(batch, cfg.attention_dim)),
                 z(batch, self._memory_dim),
-                z(batch, t_in),
+                A.initial_alignments("location_sensitive", batch, t_in, device,
+                                     dtype),
                 (z(batch, cfg.decoder_lstm_units), z(batch, cfg.decoder_lstm_units)),
                 (z(batch, cfg.decoder_lstm_units), z(batch, cfg.decoder_lstm_units)))
 
@@ -158,21 +166,22 @@ class Tacotron2:
         """Encoder side of inference: ``(step_ctx, decoder carry0)`` for
         :meth:`make_eval_step` and the decoder's chunked decode."""
         n, t_in = text_inputs.shape
-        ctx, _ = self._encode(params, state, text_inputs, input_lengths,
-                              speaker_ids, False)
+        ctx, _ = self._encode(self._cast(params), state, text_inputs,
+                              input_lengths, speaker_ids, False)
         return ctx, self._decoder_carry0(n, t_in, text_inputs.device)
 
     def make_eval_step(self, params, step_ctx):
         """The decoder step ``(carry, x) -> (carry, (out, align))`` over
         :meth:`attention_context`'s ``step_ctx``."""
         keys_mem, enc_out, mask, spk = step_ctx
-        return self._make_step(params, keys_mem, enc_out, mask, spk)
+        return self._make_step(self._cast(params), keys_mem, enc_out, mask, spk)
 
     @torch.no_grad()
     def postnet_residual(self, params, state, frames: torch.Tensor) -> torch.Tensor:
         """Postnet over decoder frames [N, T, M] (or a window of them):
-        mel = frames + this residual."""
-        return M.postnet(params["postnet"], state["postnet"], frames)
+        mel = frames + this residual (in the compute dtype)."""
+        return M.postnet(self._cast(params["postnet"]), state["postnet"],
+                         self._cast(frames))
 
     @torch.no_grad()
     def forward(self, params, state, text_inputs: torch.Tensor,
@@ -182,6 +191,7 @@ class Tacotron2:
         linear_outputs [N, T, F], alignments [N, T_in, S], decoder_steps [N].
         Rows of length 0 are padding: finished from the start."""
         cfg = self.cfg
+        params = self._cast(params)
         ctx, carry0 = self.attention_context(params, state, text_inputs,
                                              input_lengths, speaker_ids)
         outs, aligns, steps = D.scan_autoregressive(
@@ -213,6 +223,10 @@ class Tacotron2:
         the training previews) batch norm reads its running statistics."""
         cfg = self.cfg
         n, t_in = text_inputs.shape
+        # the policy's entry: float32 masters stay outside, and autograd
+        # returns float32 gradients to them through the cast
+        params = self._cast(params)
+        mel_targets = self._cast(mel_targets)
         ctx, enc_state = self._encode(params, state, text_inputs,
                                       input_lengths, speaker_ids, is_training)
         step = self._make_step(params, *ctx, is_training=is_training,
@@ -242,7 +256,7 @@ class Tacotron2:
                          "expand": expand_state}
 
     def loss(self, outputs, mel_targets, linear_targets):
-        """(loss, metrics): mel L1 plus the linear L1 with a 2 kHz priority
-        band (see :func:`tacotron.tacotron_loss`)."""
+        """(loss, metrics) in float32: mel L1 plus the linear L1 with a 2
+        kHz priority band (see :func:`tacotron.tacotron_loss`)."""
         return tacotron_loss(self.cfg, outputs, mel_targets, linear_targets,
                              priority_hz=2000)

@@ -25,7 +25,8 @@ import torch
 
 from nspeech_tpu_torch.config import Config
 from nspeech_tpu_torch.dsp.mulaw import mu_law_encode
-from nspeech_tpu_torch.ops.layers import glorot_uniform
+from nspeech_tpu_torch.ops import policy as P
+from nspeech_tpu_torch.ops.layers import acc_dot, glorot_uniform
 from nspeech_tpu_torch.ops.philox import gumbel_noise
 from nspeech_tpu_torch.utils.tree import named_leaves
 
@@ -129,8 +130,9 @@ class WaveNet:
     @staticmethod
     def _causal_conv(x: torch.Tensor, w: torch.Tensor, dilation: int):
         """VALID dilated causal conv, y_t = sum_k x_{t+k*d} @ W_k: shifted
-        slice matmuls for width <= 4, else one ``conv1d`` (the scalar
-        input's wide first conv), as the JAX package splits it."""
+        slice matmuls for width <= 4 (float32 accumulation, ``acc_dot``),
+        else one ``conv1d`` (the scalar input's wide first conv), as the
+        JAX package splits it."""
         fw = w.shape[0]
         if fw > 4:
             y = torch.nn.functional.conv1d(x.transpose(1, 2),
@@ -139,7 +141,7 @@ class WaveNet:
         t_out = x.shape[1] - dilation * (fw - 1)
         out = None
         for k in range(fw):
-            term = x[:, k * dilation: k * dilation + t_out] @ w[k]
+            term = acc_dot(x[:, k * dilation: k * dilation + t_out], w[k])
             out = term if out is None else out + term
         return out
 
@@ -187,8 +189,8 @@ class WaveNet:
         # W_L], as JAX computes it: a per-layer sum would read and write
         # the [N, T, S] accumulator (168 MB at the training window) once
         # per layer, and its gradient as often.
-        skips = (torch.cat(skip_outs, dim=-1)
-                 @ torch.cat([lp["skip"][0] for lp in params["layers"]]))
+        skips = acc_dot(torch.cat(skip_outs, dim=-1),
+                        torch.cat([lp["skip"][0] for lp in params["layers"]]))
         if self.use_biases:
             skips = skips + sum(lp["skip_bias"] for lp in params["layers"])
         h = torch.relu(skips) @ params["post1"][0]
@@ -220,12 +222,17 @@ class WaveNet:
                       lc: Optional[torch.Tensor] = None):
         """Waveform windows [N, T] (with speaker ids [N] and per-sample
         ``lc`` [N, T, lc_channels]) -> (logits [N, T - RF, Q], target codes
-        [N, T - RF]): sample t+1's code is predicted from samples <= t."""
+        [N, T - RF]): sample t+1's code is predicted from samples <= t.
+        The parameters and ``lc`` are cast to ``compute_dtype`` at entry
+        (``ops/policy.py``); the logits come out in it."""
+        dtype = P.compute_dtype(self.cfg)
+        params = P.entry_cast(params, dtype)
+        lc = P.entry_cast(lc, dtype)
         encoded = mu_law_encode(audio, self.quantization_channels)
         lc_in = lc[:, :-1, :] if lc is not None else None
         gc = self._embed_gc(params, gc_ids)
         if self.scalar_input:
-            logits = self._network(params, audio[:, :-1, None].to(torch.float32),
+            logits = self._network(params, audio[:, :-1, None].to(dtype),
                                    gc, lc_in)
         else:
             logits = self._network_embedded(params, encoded[:, :-1], gc, lc_in)

@@ -10,6 +10,12 @@ weights are used as they are. Initializers draw from a
 prenet have a training mode (batch moments and their running update;
 inverted dropout from a ``torch.Generator``); without it they are the
 inference functions.
+
+Under the bf16 compute policy (``ops/policy.py``) every layer keeps the
+dtype it is given: products go through :func:`acc_dot` and
+:func:`acc_einsum` (float32 accumulation, one rounding), batch norm
+computes in float32 and returns the input dtype, and the recurrent zero
+states take the input's dtype.
 """
 
 from __future__ import annotations
@@ -19,6 +25,8 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from nspeech_tpu_torch.ops.policy import upcast
 
 Params = Dict[str, object]
 
@@ -128,8 +136,26 @@ def softsign(x: torch.Tensor) -> torch.Tensor:
     return x / (1.0 + x.abs())
 
 
+def acc_dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` for operands of one dtype, the product the policy's
+    float32 accumulation is promised for (JAX's
+    ``preferred_element_type=float32`` followed by the cast). The
+    accumulation itself is the backend's: the CPU's bf16 kernels
+    accumulate in float32 and round once, and cuBLAS's bf16 GEMMs do so
+    only with reduced-precision reductions off, a global flag that
+    ``policy.set_matmul_precision`` sets in every entry point. In float32
+    it is the plain product."""
+    return x @ w
+
+
+def acc_einsum(spec: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The einsum twin of :func:`acc_dot` (same dtype in, the same
+    accumulation, under the same global flag)."""
+    return torch.einsum(spec, a, b)
+
+
 def dense(params: Params, x: torch.Tensor, activation=None) -> torch.Tensor:
-    y = x @ params["kernel"]
+    y = acc_dot(x, params["kernel"])
     if "bias" in params:
         y = y + params["bias"]
     return activation(y) if activation is not None else y
@@ -140,7 +166,9 @@ def embedding(params: Params, ids: torch.Tensor) -> torch.Tensor:
 
 
 def conv1d(params: Params, x: torch.Tensor) -> torch.Tensor:
-    """'SAME' 1-D convolution: x [N, T, C] -> [N, T, C_out]."""
+    """'SAME' 1-D convolution: x [N, T, C] -> [N, T, C_out], in ``x``'s
+    dtype (a bf16 convolution accumulates in float32 in cuDNN and on the
+    CPU)."""
     w = params["kernel"]                       # [W, Cin, Cout]
     width = w.shape[0]
     left = (width - 1) // 2
@@ -155,19 +183,23 @@ def batch_norm(params: Params, state: Params, x: torch.Tensor,
     statistics, returns y. In training (``is_training=True``): the moments
     of ``x`` over all leading axes (padded frames included, the variance
     the biased one, as ``jnp.var``), returns ``(y, new_state)`` with the
-    running statistics moved by momentum ``BN_MOMENTUM``."""
+    running statistics moved by momentum ``BN_MOMENTUM``. A bf16 ``x`` is
+    normalized in float32 (moments and running statistics included) and
+    the result returned in bf16."""
+    xf = upcast(x)
+    scale, offset = upcast(params["scale"]), upcast(params["offset"])
     if not is_training:
-        inv = torch.rsqrt(state["var"] + BN_EPS) * params["scale"]
-        return (x - state["mean"]) * inv + params["offset"]
+        inv = torch.rsqrt(state["var"] + BN_EPS) * scale
+        return ((xf - state["mean"]) * inv + offset).to(x.dtype)
     axes = tuple(range(x.ndim - 1))
-    mean = x.mean(dim=axes)
-    var = x.var(dim=axes, correction=0)
+    mean = xf.mean(dim=axes)
+    var = xf.var(dim=axes, correction=0)
     new_state = {
         "mean": BN_MOMENTUM * state["mean"] + (1 - BN_MOMENTUM) * mean.detach(),
         "var": BN_MOMENTUM * state["var"] + (1 - BN_MOMENTUM) * var.detach(),
     }
-    inv = torch.rsqrt(var + BN_EPS) * params["scale"]
-    return (x - mean) * inv + params["offset"], new_state
+    inv = torch.rsqrt(var + BN_EPS) * scale
+    return ((xf - mean) * inv + offset).to(x.dtype), new_state
 
 
 def conv_bn(params: Params, state: Params, x: torch.Tensor, activation,
@@ -207,10 +239,10 @@ def gru_cell(params: Params, x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
     """One TF GRU step; returns the new state. The candidate reads [x, r*h]
     through one kernel (``torch.nn.GRUCell`` computes r * (W_hn h + b_hn)
     instead, a different function)."""
-    gates = torch.sigmoid(torch.cat([x, h], dim=-1) @ params["gate_kernel"]
-                          + params["gate_bias"])
+    gates = torch.sigmoid(acc_dot(torch.cat([x, h], dim=-1),
+                                  params["gate_kernel"]) + params["gate_bias"])
     r, u = torch.chunk(gates, 2, dim=-1)
-    c = torch.tanh(torch.cat([x, r * h], dim=-1) @ params["cand_kernel"]
+    c = torch.tanh(acc_dot(torch.cat([x, r * h], dim=-1), params["cand_kernel"])
                    + params["cand_bias"])
     return u * h + (1.0 - u) * c
 
@@ -259,9 +291,9 @@ def bigru_rnn(params_fw: Params, params_bw: Params, x: torch.Tensor,
     cx, ch = split("cand_kernel")
     gb = torch.stack([params_fw["gate_bias"], params_bw["gate_bias"]])
     cb = torch.stack([params_fw["cand_bias"], params_bw["cand_bias"]])
-    xg = (torch.einsum("gntc,gcz->gntz", x4, gx)
+    xg = (acc_einsum("gntc,gcz->gntz", x4, gx)
           + gb[:, None, None]).reshape(2 * N, T, 2 * units)
-    xc = (torch.einsum("gntc,gcz->gntz", x4, cx)
+    xc = (acc_einsum("gntc,gcz->gntz", x4, cx)
           + cb[:, None, None]).reshape(2 * N, T, units)
     mask = _length_mask(lengths, T, x.device)
     if mask is not None:
@@ -297,7 +329,7 @@ def lstm_cell(params: Params, x: torch.Tensor,
     """One [x, h] -> (i, g, f, o) LSTM step; the forget bias is added at
     run time. Returns (h, (c, h))."""
     c, h = state
-    z = torch.cat([x, h], dim=-1) @ params["kernel"] + params["bias"]
+    z = acc_dot(torch.cat([x, h], dim=-1), params["kernel"]) + params["bias"]
     new_c, new_h = _lstm_gates(z, c, forget_bias)
     return new_h, (new_c, new_h)
 
@@ -328,7 +360,7 @@ def bilstm_rnn(params_fw: Params, params_bw: Params, x: torch.Tensor,
     wx = torch.stack([params_fw["kernel"][:C], params_bw["kernel"][:C]])
     wh = torch.stack([params_fw["kernel"][C:], params_bw["kernel"][C:]])
     b = torch.stack([params_fw["bias"], params_bw["bias"]])        # [2, 4H]
-    xz = (torch.einsum("gntc,gcz->gntz", x2.reshape(2, N, T, C), wx)
+    xz = (acc_einsum("gntc,gcz->gntz", x2.reshape(2, N, T, C), wx)
           + b[:, None, None]).reshape(2 * N, T, 4 * units)
     mask = _length_mask(lengths, T, x.device)
     if mask is not None:

@@ -4,7 +4,9 @@
 Texts are padded to a bucket of ``text_bucket`` symbols and the batch to a
 power of two, with padding rows of length 0 (finished from the first
 decoder step). Each row gets its own Griffin-Lim inversion; the endpoint
-trim runs on the host.
+trim runs on the host. A config with ``compute_dtype=bfloat16`` serves
+under the bf16 policy (``ops/policy.py``): the parameters are cast once,
+and the features leave the model as float32.
 """
 
 from __future__ import annotations
@@ -20,6 +22,8 @@ from nspeech_tpu_torch.data.feeder import round_up
 from nspeech_tpu_torch.models import create_model
 from nspeech_tpu_torch.ops import threefry
 from nspeech_tpu_torch.ops.layers import tree_to
+from nspeech_tpu_torch.ops.policy import (compute_dtype, entry_cast,
+                                          set_matmul_precision, upcast)
 from nspeech_tpu_torch.serving.errors import check_ids
 from nspeech_tpu_torch.text import text_to_sequence
 from nspeech_tpu_torch.text.symbols import PAD_ID
@@ -37,9 +41,9 @@ class Synthesizer:
         self._cleaners = [x.strip() for x in cfg.cleaners.split(",")]
         self._text_bucket = text_bucket
         if self.device.type == "cuda":
-            # full float32: cuDNN convolutions default to TF32
-            torch.backends.cuda.matmul.allow_tf32 = False
-            torch.backends.cudnn.allow_tf32 = False
+            # full float32 (cuDNN convolutions default to TF32), and bf16
+            # GEMMs that accumulate in float32
+            set_matmul_precision("highest")
 
     @classmethod
     def from_checkpoint(cls, checkpoint_dir: str,
@@ -80,7 +84,10 @@ class Synthesizer:
             self.model = model
         if self.model is None:
             raise ValueError("No model: pass model= or call load() first")
-        self._params = tree_to(params, self.device)
+        # cast to the compute dtype once here, so that the model's entry
+        # casts find nothing left to cast on each request
+        self._params = entry_cast(tree_to(params, self.device),
+                                  compute_dtype(self.cfg))
         self._bn_state = tree_to(bn_state, self.device)
         return self
 
@@ -141,16 +148,18 @@ class Synthesizer:
         outputs = self.model.forward(
             self._params, self._bn_state, torch.from_numpy(ids).to(dev),
             torch.from_numpy(lengths).to(dev), torch.from_numpy(spk).to(dev))
-        lin = outputs["linear_outputs"]
+        # the features leave the model in the compute dtype; Griffin-Lim and
+        # the vocoder take float32
+        lin = upcast(outputs["linear_outputs"])
         wavs = dsp.inv_preemphasis(
             dsp.inv_spectrogram(lin, self.cfg, phase=self.initial_phase(lin.shape)),
             float(self.cfg.preemphasis)).cpu().numpy()
-        self.last_alignment = outputs["alignments"][0].cpu().numpy()
+        self.last_alignment = upcast(outputs["alignments"][0]).cpu().numpy()
         self.last_decoder_steps = int(outputs["decoder_steps"][0])
         out_wavs = [w[: dsp.find_endpoint(w, self.cfg)] for w in wavs[: len(texts)]]
         if not want_features:
             return out_wavs, None, None
-        mels = outputs["mel_outputs"][: len(texts)].cpu().numpy()
+        mels = upcast(outputs["mel_outputs"][: len(texts)]).cpu().numpy()
         if want_features == "mel":
             return out_wavs, mels, None
         return out_wavs, mels, lin[: len(texts)].cpu().numpy()

@@ -8,7 +8,9 @@ one 8-bit grayscale pixel per (frame, bin) or (decoder step, input
 symbol), frames left to right, the lowest bin or first symbol at the
 bottom, values min-max scaled to 0..255 (a constant array is black).
 There are no axes, title, caption or colour bar, so the pixels differ
-from matplotlib's. The waveform plot (``plot_wave``) is not ported.
+from matplotlib's. The waveform (``plot_wave``) is drawn as its envelope:
+per pixel column the minimum and maximum of the samples it covers, a
+white bar on black, time left to right.
 """
 
 from __future__ import annotations
@@ -50,6 +52,38 @@ def plot_specgram(spec: np.ndarray, path: str, spec_type: str = "linear") -> Non
     del spec_type
     with open(path, "wb") as f:
         f.write(png_gray8(specgram_image(spec)))
+
+
+def wave_image(wav: np.ndarray, width: int = 1200, height: int = 200) -> np.ndarray:
+    """[N] waveform -> [height, width] uint8 envelope image: column c
+    spans samples [c*N/width, (c+1)*N/width) and is white from their
+    minimum to their maximum, on a [-1, 1] vertical scale with +1 on the
+    top row (values outside it are clipped). Fewer samples than ``width``
+    give one column per sample; an empty waveform a black image."""
+    wav = np.clip(np.asarray(wav, np.float64).reshape(-1), -1.0, 1.0)
+    n = len(wav)
+    width = max(1, min(width, n))
+    image = np.zeros((height, width), np.uint8)
+    if n == 0:
+        return image
+    edges = (np.arange(width + 1) * n) // width
+    lo = np.minimum.reduceat(wav, edges[:-1])
+    hi = np.maximum.reduceat(wav, edges[:-1])
+    # row 0 is +1, row height-1 is -1
+    top = np.round((1.0 - hi) * 0.5 * (height - 1)).astype(np.int64)
+    bottom = np.round((1.0 - lo) * 0.5 * (height - 1)).astype(np.int64)
+    rows = np.arange(height)[:, None]
+    image[(rows >= top[None, :]) & (rows <= bottom[None, :])] = 255
+    return image
+
+
+def plot_wave(wav: np.ndarray, sample_rate: int, path: str, text: str = "") -> None:
+    """The waveform's envelope as a PNG (:func:`wave_image`).
+    ``sample_rate`` and ``text`` (the JAX package's time axis and title)
+    are not drawn."""
+    del sample_rate, text
+    with open(path, "wb") as f:
+        f.write(png_gray8(wave_image(wav)))
 
 
 def plot_alignment(alignment: np.ndarray, path: str, info: str = None) -> None:

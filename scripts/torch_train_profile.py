@@ -2,6 +2,8 @@
 
     python3 scripts/torch_train_profile.py                  # Tacotron-2
     python3 scripts/torch_train_profile.py --model wavenet  # the vocoder
+    python3 scripts/torch_train_profile.py --model wavenet --profile-only \
+        --hparams compute_dtype=bfloat16                    # bf16 policy
 
 Run from the repository root on a machine with the card. It writes the
 synthetic corpus of ``chip_smoke.py``'s training phase into a temporary
@@ -31,6 +33,13 @@ of the corpus (batch 1), with the post-net relu masks that differ between
 the card and the CPU; then, at batch 4 windows of 5,117 + 20,480 samples,
 the wall time of 5 warm steps (after 2 warm-up steps), the peak memory,
 and one step under ``torch.profiler`` as above.
+
+``--hparams k=v,...`` applies to the profiled step's configuration (for
+example ``compute_dtype=bfloat16``); ``--profile-only`` skips part 1.
+The profiled step is also written as a Chrome trace under
+``--trace-dir`` (default ``build/profile``; ``utils/profiling.py``
+``trace``) and its 15 costliest device operations printed from that trace
+(``summarize_trace``).
 """
 
 from __future__ import annotations
@@ -187,14 +196,14 @@ def gradient_errors(items) -> None:
               f"{abs(ug - uc) / uc:.2e}")
 
 
-def print_profile(step, state, data, step_ms: float) -> None:
+def print_profile(step, state, data, step_ms: float, log_dir: str) -> None:
     """One ``step(state, data)`` under ``torch.profiler``: device time and
     host time by operation, launches, and the kernel time's share of
     ``step_ms``, the step's unprofiled wall time (the profiler's own
     start-up stretches the profiled step's wall time)."""
-    from torch.profiler import ProfilerActivity, profile
+    from nspeech_tpu_torch.utils import profiling
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profiling.trace(log_dir) as prof:
         state, m = step(state, data, step_generator("cuda", 0, 3))
         float(m["loss"])
         torch.cuda.synchronize()
@@ -208,6 +217,8 @@ def print_profile(step, state, data, step_ms: float) -> None:
                    max_name_column_width=50))
     print(ka.table(sort_by="cpu_time_total", row_limit=12,
                    max_name_column_width=50))
+    print(f"trace {log_dir}: the 15 costliest device operations")
+    profiling.print_trace_summary(log_dir, 15)
 
 
 def wavenet_gradient_errors(corpus, n_windows: int = 8) -> None:
@@ -238,11 +249,12 @@ def wavenet_gradient_errors(corpus, n_windows: int = 8) -> None:
               f"{line} -> {'within' if good else 'OUTSIDE'} the smoke's tolerances")
 
 
-def profile_wavenet(corpus) -> None:
+def profile_wavenet(corpus, extra: str, trace_dir: str) -> None:
     from nspeech_tpu_torch.data.wavenet_feeder import WaveNetFeeder
     from nspeech_tpu_torch.models.wavenet import WaveNet
 
-    cfg = chip_smoke.wavenet_cfg(",gc_category_cardinality=1")
+    cfg = chip_smoke.wavenet_cfg(",gc_category_cardinality=1"
+                                 + ("," + extra if extra else ""))
     net = WaveNet(cfg)
     opt, sched = make_optimizer(cfg, "wavenet")
     step = build_wavenet_train_step(net, opt, cfg, sched, use_gc=True, use_lc=True)
@@ -261,15 +273,15 @@ def profile_wavenet(corpus) -> None:
         state, m = step(state, data)
         float(m["loss"])
         times.append(time.perf_counter() - t0)
-    print(f"wavenet step at batch {cfg.batch_size}, windows of "
+    print(f"wavenet step ({cfg.compute_dtype}) at batch {cfg.batch_size}, windows of "
           f"{data.audio.shape[1]} samples: {', '.join(f'{t * 1e3:.1f}' for t in times)} "
           f"ms (5 warm steps); peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    print_profile(step, state, data, sorted(times)[2] * 1e3)
+    print_profile(step, state, data, sorted(times)[2] * 1e3, trace_dir)
 
 
-def profile_step(corpus) -> None:
-    cfg = load_config("taco2")
+def profile_step(corpus, extra: str, trace_dir: str) -> None:
+    cfg = load_config("taco2").parse(extra)
     batches = list(DataFeeder({"ljspeech": corpus}, cfg, seed=0).epoch_batches(0))
     longest = max(batches, key=lambda b: b.mel_targets.shape[1])
     model = Tacotron2(cfg)
@@ -285,30 +297,40 @@ def profile_step(corpus) -> None:
     state, m = step(state, data, step_generator("cuda", 0, 2))
     float(m["loss"])
     wall = time.perf_counter() - t0
-    print(f"step at batch {data.mel_targets.shape[0]}, T_in "
+    print(f"step ({cfg.compute_dtype}) at batch {data.mel_targets.shape[0]}, T_in "
           f"{data.inputs.shape[1]}, T_out {data.mel_targets.shape[1]}: "
           f"{wall * 1e3:.1f} ms")
-    print_profile(step, state, data, wall * 1e3)
+    print_profile(step, state, data, wall * 1e3, trace_dir)
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--model", default="taco2", choices=["taco2", "wavenet"])
+    parser.add_argument("--hparams", default="",
+                        help="k=v,... for the profiled step (e.g. "
+                             "compute_dtype=bfloat16)")
+    parser.add_argument("--profile-only", action="store_true",
+                        help="skip the card-against-CPU comparison")
+    parser.add_argument("--trace-dir", default=os.path.join("build", "profile"),
+                        help="where the profiled step's Chrome trace goes")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("no CUDA device: this script runs on the card", file=sys.stderr)
         return 1
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    from nspeech_tpu_torch.ops.policy import set_matmul_precision
+
+    set_matmul_precision("highest")
     print(chip_smoke.card_line())
     with tempfile.TemporaryDirectory() as tmp:
         corpus = chip_smoke.write_corpus(os.path.join(tmp, "corpus"))
         if args.model == "wavenet":
-            wavenet_gradient_errors(corpus)
-            profile_wavenet(corpus)
+            if not args.profile_only:
+                wavenet_gradient_errors(corpus)
+            profile_wavenet(corpus, args.hparams, args.trace_dir)
             return 0
-        gradient_errors(load_items({"ljspeech": corpus}))
-        profile_step(corpus)
+        if not args.profile_only:
+            gradient_errors(load_items({"ljspeech": corpus}))
+        profile_step(corpus, args.hparams, args.trace_dir)
     return 0
 
 

@@ -5,7 +5,9 @@ stale mel refused, a multi-speaker export through the checkpoint's
 speaker map, export then train on the windows), and the port's export
 held to the JAX package's from the same Tacotron-2 weights: the same file
 names and manifest, mels within 1e-5 absolute (teacher-forced forwards of
-two packages on mel targets within the featurizer's 1e-5; found: 2.6e-8).
+two packages on mel targets within the featurizer's 1e-5; found: 2.6e-8),
+and from a ``compute_dtype=bfloat16`` checkpoint within JAX's bf16 bound
+of JAX's float32 export.
 """
 
 import importlib.util
@@ -49,6 +51,8 @@ TACO2 = ("max_iters=4,encoder_conv_layers=1,postnet_conv_layers=1,"
          "decoder_lstm_units=16,encoder_lstm_units=8,expand_lstm_units=8,"
          "embedding_dim=16")
 GTA_TOL = 1e-5
+BF16_TOL = 0.05         # tests/test_mixed_precision.py's bf16 bound
+BF16_GAP_FACTOR = 2.0   # as tests/test_torch_policy.py
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 QUIET = dict(log=lambda *_: None)
 
@@ -188,16 +192,16 @@ def test_export_then_train_windows(corpus, tmp_path, capsys):
     assert os.path.exists(tmp_path / "logs" / "wavenet" / "ckpt" / "serving" / "1.npz")
 
 
-def test_export_matches_jax_export(corpus, tmp_path):
-    """One directory holds the JAX (Orbax) checkpoint of a tiny Tacotron-2
-    and the port's serving archive of the same weights; both packages
-    export from it."""
-    jcfg, tcfg = j_load("taco2").parse(TACO2), load_config("taco2").parse(TACO2)
+def bridged_checkpoint(ckpt, extra=""):
+    """One directory that holds the JAX (Orbax) checkpoint of a tiny
+    Tacotron-2 (``TACO2`` + ``extra``) and the port's serving archive of
+    the same weights, so that both packages export from it."""
+    jcfg = j_load("taco2").parse(TACO2 + extra)
+    tcfg = load_config("taco2").parse(TACO2 + extra)
     jcfg.num_speakers = tcfg.num_speakers = 1
     model = j_create("taco2", jcfg)
     tx, _ = j_make_optimizer(jcfg, "taco2")
     state = j_create_state(model, tx, jax.random.PRNGKey(0))
-    ckpt = str(tmp_path / "ckpt")
     mgr = JCheckpointManager(ckpt)
     mgr.save(3, state)
     mgr.wait()
@@ -209,6 +213,11 @@ def test_export_matches_jax_export(corpus, tmp_path):
         jax.tree_util.tree_map(np.asarray, state.bn_state))
     save_serving_checkpoint(ckpt, 3, "taco2", tcfg, tp, ts,
                             speaker_map={("ljspeech", "0"): 0})
+
+
+def test_export_matches_jax_export(corpus, tmp_path):
+    ckpt = str(tmp_path / "ckpt")
+    bridged_checkpoint(ckpt)
     kw = dict(batch_size=3, text_bucket=16, frame_bucket=32, **QUIET)
     jm = j_export(ckpt, {"ljspeech": corpus}, str(tmp_path / "j"), **kw)
     tm = export_gta(ckpt, {"ljspeech": corpus}, str(tmp_path / "t"),
@@ -220,3 +229,36 @@ def test_export_matches_jax_export(corpus, tmp_path):
         t = np.load(tmp_path / "t" / name)
         assert t.shape == j.shape and t.dtype == np.float32
         np.testing.assert_allclose(t, j, atol=GTA_TOL, rtol=0)
+
+
+def test_export_bf16_checkpoint_matches_jax_export(corpus, tmp_path):
+    """``cli.export_gta`` from a checkpoint whose hparams say
+    ``compute_dtype=bfloat16``: float32 ``.npy`` mels (the bf16 forward's
+    output upcast, as JAX's ``.astype(np.float32)``), within JAX's bf16
+    bound (atol 0.05, rtol 0.05) of JAX's float32 export of the same
+    weights, and at most ``BF16_GAP_FACTOR`` times JAX's own bf16
+    export's largest gap to it (the two bf16 forwards round at other
+    points: XLA keeps float32 inside its fusions; found: 0.66-1.16
+    times)."""
+    kw = dict(batch_size=3, text_bucket=16, frame_bucket=32, **QUIET)
+    ckpt32, ckpt16 = str(tmp_path / "ckpt32"), str(tmp_path / "ckpt16")
+    bridged_checkpoint(ckpt32)
+    bridged_checkpoint(ckpt16, ",compute_dtype=bfloat16")
+    j_export(ckpt32, {"ljspeech": corpus}, str(tmp_path / "j32"), **kw)
+    jm = j_export(ckpt16, {"ljspeech": corpus}, str(tmp_path / "j16"), **kw)
+    out = str(tmp_path / "t16")
+    gta_cli.main(["--device", "cpu", "--checkpoint", ckpt16, "--ljspeech", corpus,
+                  "--out-dir", out, "--batch-size", "3", "--text-bucket", "16",
+                  "--frame-bucket", "32"])
+    with open(os.path.join(out, "manifest.json")) as f:
+        tm = json.load(f)
+    assert tm["files"] == jm["files"] and tm["count"] == 4
+    for name in tm["files"].values():
+        ref = np.load(tmp_path / "j32" / name)
+        j = np.load(tmp_path / "j16" / name)
+        t = np.load(os.path.join(out, name))
+        assert t.shape == ref.shape and t.dtype == np.float32
+        assert np.isfinite(t).all()
+        np.testing.assert_allclose(t, ref, atol=BF16_TOL, rtol=BF16_TOL)
+        gap, jgap = np.abs(t - ref).max(), np.abs(j - ref).max()
+        assert gap <= BF16_GAP_FACTOR * jgap, (name, gap, jgap)

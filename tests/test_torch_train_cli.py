@@ -2,8 +2,9 @@
 corpus): ``python -m nspeech_tpu_torch.cli.train`` writes checkpoints that
 resume and serve, also from batches held by ``--device-cache``; the
 checkpoint manager's retention policy and EMA toggling, the explosion
-guard, the holdout loss, and the options whose modules are not ported yet
-exiting with their ROADMAP item. ``python -m
+guard, the holdout loss, the artifacts (-wav.png among them), the bf16
+compute policy and ``--matmul-precision`` training, and the options whose
+modules are not ported yet exiting with their ROADMAP item. ``python -m
 nspeech_tpu_torch.cli.train_wavenet`` trains, resumes and writes a
 checkpoint that ``cli.generate_wavenet --device cpu`` serves, with the
 ``config.json`` that the JAX package's ``train_wavenet.py`` writes for the
@@ -80,8 +81,10 @@ def test_first_run_writes_checkpoints_metrics_and_artifacts(run):
     meta = json.load(open(os.path.join(ckpt, "config.json")))
     assert meta["model"] == "taco2" and meta["speaker_map"] == [["ljspeech", "0", 0]]
     assert meta["hparams"]["num_speakers"] == 1
-    for suffix in ("audio.wav", "lin.png", "mel.png", "align.png"):
+    for suffix in ("audio.wav", "lin.png", "mel.png", "align.png", "wav.png"):
         assert os.path.getsize(os.path.join(run, "step-000002-" + suffix)) > 0
+    with open(os.path.join(run, "step-000002-wav.png"), "rb") as f:
+        assert f.read(8) == b"\x89PNG\r\n\x1a\n"
     recs = [json.loads(line) for line in open(os.path.join(run, "metrics.jsonl"))]
     losses = [r for r in recs if "loss" in r]
     assert [r["step"] for r in losses] == [1, 2, 3]
@@ -243,9 +246,33 @@ def test_explosion_guard_restores_then_gives_up(tmp_path, capsys):
     assert "recovery 3/3" in capsys.readouterr().out
 
 
+@pytest.mark.parametrize("extra,hparams", [
+    (["--matmul-precision", "bfloat16"], TINY),
+    ([], TINY + ",compute_dtype=bfloat16"),
+], ids=["matmul-precision-bfloat16", "compute-dtype-bfloat16"])
+def test_reduced_precision_options_train(corpus, tmp_path, capsys, extra,
+                                         hparams):
+    """The two options that exited before the bf16 policy was ported
+    train: the checkpoint's masters stay float32, the loss is finite, and
+    the log names the precision and the compute dtype."""
+    train(corpus, tmp_path, "--max-steps", "2", "--checkpoint-interval", "2",
+          "--summary-interval", "1", *extra, hparams=hparams)
+    out = capsys.readouterr().out
+    dtype = "bfloat16" if "compute_dtype" in hparams else "float32"
+    assert f"compute dtype {dtype}" in out
+    assert "matmul precision: %s" % (extra[1] if extra else "highest") in out
+    ckpt = tmp_path / "taco2" / "ckpt"
+    state = torch.load(ckpt / "train" / "2.pt", weights_only=True)
+    assert all(t.dtype == torch.float32 for t in tree_leaves(state["params"]))
+    recs = [json.loads(line) for line in open(tmp_path / "taco2" / "metrics.jsonl")]
+    assert [r["step"] for r in recs if "loss" in r] == [1, 2]
+    assert all(np.isfinite(r["loss"]) for r in recs if "loss" in r)
+    syn = Synthesizer.from_checkpoint(str(ckpt), device="cpu")
+    wav, mel, _ = syn.synthesize("Two steps in.")
+    assert wav.size > 0 and mel.dtype == np.float32 and np.isfinite(mel).all()
+
+
 @pytest.mark.parametrize("extra,env,match", [
-    (["--matmul-precision", "bfloat16"], None, "item 4.4"),
-    (["--hparams", "compute_dtype=bfloat16"], None, "item 4.4"),
     (["--model", "wavenet"], None, "nspeech_tpu_torch.cli.train_wavenet"),
     ([], "2", "item 5"),
 ])
