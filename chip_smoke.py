@@ -10,14 +10,19 @@
    at full vocoder width (wavenet hparams + lc_channels=80, gc_channels=16,
    gc_category_cardinality=4, seeded weights and mel): B=1 without
    speakers and B=4 with per-stream speakers, each at temperature 0 and 1,
-   over N_CHECK samples; the ``simple_wavenet`` preset (no conditioning,
-   the kernel's M = 0) at B=1, temperature 0 and 1, over N_SIMPLE samples;
+   over N_CHECK samples, after a warm launch of the same codes; the
+   ``simple_wavenet`` preset (no conditioning, the kernel's M = 0) at
+   B=1, temperature 0 and 1, over N_SIMPLE samples;
    and a batch of at least 17 streams, one more than the card runs at
    once, so that the clusters run in waves (N_WAVES samples, T=1). Codes
    drift apart after one rounding flip, so the check is teacher-forced:
    the kernel's codes are fed to the plain generator as its inputs, and
    at every step the kernel's code must score within SCORE_TOL of the
-   plain version's best score (same Philox noise).
+   plain version's best score (same Philox noise). Before any code is
+   used as an index, every launch's codes must lie in [0, Q): a bad
+   launch prints its first bad step and the codes' range and fails its
+   case, where an out-of-range index would end the CUDA context with a
+   device-side assert. The warm launch must equal the checked one.
 3. Holds the kernel's carried-state launches (the streaming form) against
    one launch and against the plain version: launches of N_CHECK samples
    split as CARRY_SPLIT must give the codes of one launch, in the same 4
@@ -81,8 +86,14 @@
     step in float32, loss within STEP_LOSS_TOL relative, the gradient,
     ``grad_norm``, Adam's update and the EMA within STEP_NORM_TOL in
     2-norm, each leaf within STEP_LEAF_TOL of its largest entry; the
-    gradient in float64 within STEP_GRAD_TOL of each leaf's largest), runs
-    ``cli.synthesize`` from the trained checkpoint with the phase-5
+    gradient in float64 within STEP_GRAD_TOL of each leaf's largest; the
+    weight gradients deferred, the trainer's default), holds the deferred
+    float64 gradient against autograd's on the card (STEP_GRAD_TOL), times
+    warm steps at batch 32 and T_out 900 in turns autograd, deferred,
+    deferred, autograd (TURN_STEPS each, peak memory per turn) and
+    profiles one step of each (``scripts/torch_train_profile.py``:
+    launches, kernel time, ``aten::add_``'s share and costliest input
+    shapes), runs ``cli.synthesize`` from the trained checkpoint with the phase-5
     vocoder (one-shot launches), and trains Tacotron-1 at its published
     widths for 2 steps. The training path reaches no TPU kernel; only the
     synthesis launches the sampler.
@@ -124,10 +135,19 @@
     of the float32 run's first step on the same batch; then peak memory
     (each dtype alone) and warm sec/step (steps in turns float32, bf16,
     bf16, float32) of both models.
-14. Prints each form's time per sample (per step for the primed form)
+14. Imports reference (TensorFlow) checkpoints (``import_phase``, last):
+    the reference-named tensors of a seeded Tacotron-2 at its published
+    widths and of the vocoder at the recipe (``tests/make_reference_ckpt.py``;
+    the mapping the importers take, as this machine has no TensorFlow)
+    through ``cli.import_reference_ckpt``'s ``import_checkpoint`` (the
+    tree checked on the card), every imported leaf equal to its source,
+    one ``cli.synthesize`` request from the two imported checkpoints (one
+    one-shot launch) and the imported Tacotron-2's served mel within
+    MEL_TOL of the same checkpoint's forward on the CPU.
+15. Prints each form's time per sample (per step for the primed form)
     beside its bound, one ``{"kernels": [...]}`` line (one-shot, carried
     and primed records; ``launches`` summed over the paths of phases
-    5-11 and 13, each counted from 0 just before it) and, last, the
+    5-11, 13 and 14, each counted from 0 just before it) and, last, the
     ``{"ok": true, "device": ...}`` line. Exits non-zero without a card
     or when any check fails.
 """
@@ -162,6 +182,7 @@ TRAIN_UTTS = 64         # synthetic corpus of the training phase, 1-10 s each
 TEXT_RATE = 15          # its characters of text per second of audio
 TRAIN_STEPS = 4         # first training run; the resumed run adds one
 WARM_STEPS = 3          # timed steps per padded length after a warm-up step
+TURN_STEPS = 2          # timed steps per turn of the deferred-gradient timing
 STEP_LOSS_TOL = 1e-4    # training loss, card vs CPU, relative
 STEP_GRAD_TOL = 1e-9    # float64 gradients, card vs CPU, of each leaf's largest entry
 STEP_NORM_TOL = 3e-3    # float32 gradient, grad_norm, update, EMA: relative 2-norm
@@ -210,6 +231,20 @@ def cuda_ms(fn, reps: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
+def repo_module(path: str):
+    """The repository's ``path`` (relative to this file) as a module, loaded
+    by path: another package may own a name such as ``tests`` here."""
+    import importlib.util
+    import os
+
+    full = os.path.join(os.path.dirname(os.path.abspath(__file__)), path)
+    spec = importlib.util.spec_from_file_location(
+        os.path.splitext(os.path.basename(path))[0], full)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def vocoder(seed: int):
     from nspeech_tpu_torch.config import load_config
     from nspeech_tpu_torch.models.wavenet import WaveNet
@@ -255,17 +290,36 @@ def sampler_flops(net, batch: int, n: int) -> float:
     return 2.0 * macs * batch * n
 
 
+def code_range_fault(codes: torch.Tensor, q: int):
+    """None when every code of ``codes`` [B, T] lies in [0, q); else the
+    first step holding a code outside it and the codes' range. Read before
+    the codes index anything: an out-of-range index on the card is a
+    device-side assert that ends the process's CUDA context."""
+    bad = ((codes < 0) | (codes >= q)).any(dim=0).nonzero()
+    if bad.numel() == 0:
+        return None
+    return {"step": int(bad[0, 0]), "min": int(codes.min()),
+            "max": int(codes.max())}
+
+
+def range_fail(what: str, bad: dict, q: int) -> str:
+    return (f"{what}: codes outside [0, {q}) from step {bad['step']}, codes "
+            f"in [{bad['min']}, {bad['max']}] -> FAIL")
+
+
 def check_case(net, params, batch, gc_ids, temperature, seed, n=N_CHECK,
                label="wavenet"):
-    """Kernel vs plain, teacher-forced, over n samples. Returns a result
-    dict."""
+    """Kernel vs plain, teacher-forced, over n samples: the codes' range
+    first (a bad launch reports itself before its codes index the plain
+    generator), then the warm launch's codes against the checked
+    launch's, then the scores. Returns a result dict."""
     from nspeech_tpu_torch.ops.cuda.wavenet_gen import CudaWaveNetGenerator
     from nspeech_tpu_torch.ops.philox import gumbel_noise
 
     Q = net.quantization_channels
     lc = seeded_lc(seed, batch, n, 250) if net.lc_channels else None
     gen = CudaWaveNetGenerator(net, params, gc_ids=gc_ids)
-    gen(n, seed=seed, batch=batch, lc=lc, temperature=temperature)
+    warm = gen(n, seed=seed, batch=batch, lc=lc, temperature=temperature)
     torch.cuda.synchronize()
     codes = None
 
@@ -274,6 +328,14 @@ def check_case(net, params, batch, gc_ids, temperature, seed, n=N_CHECK,
         codes = gen(n, seed=seed, batch=batch, lc=lc, temperature=temperature)
 
     ms = cuda_ms(run)
+    what = f"kernel vs plain, {label}, B={batch} T={temperature}"
+    for launch, out in (("warm", warm), ("checked", codes)):
+        bad = code_range_fault(out, Q)
+        if bad is not None:
+            print(range_fail(f"{what}, {launch} launch", bad, Q))
+            return {"ok": False, "gap": float("inf"), "ms": ms, "gen": gen,
+                    "lc": lc}
+    repeat = torch.equal(warm, codes)
     inputs = torch.cat([torch.full((batch, 1), Q // 2, device="cuda",
                                    dtype=torch.int32), codes[:, :-1]], dim=1)
     _, logits = net.generate(params, 0, seed=seed, batch=batch, gc_ids=gc_ids,
@@ -289,12 +351,12 @@ def check_case(net, params, batch, gc_ids, temperature, seed, n=N_CHECK,
     gap = (best - chosen).max().item()
     differ = (scores.argmax(dim=-1) != codes.long()).nonzero()
     first = None if differ.numel() == 0 else int(differ[:, 1].min())
-    ok = bool(np.isfinite(gap) and gap <= SCORE_TOL
-              and int(codes.min()) >= 0 and int(codes.max()) < Q)
+    ok = bool(np.isfinite(gap) and gap <= SCORE_TOL and repeat)
     gc_note = gc_ids if gc_ids is None or len(gc_ids) <= 4 else f"{len(gc_ids)} ids"
     print(f"kernel vs plain, {label}, B={batch} gc={gc_note} T={temperature}: "
           f"max score gap {gap:.3g} (tol {SCORE_TOL}), first differing "
-          f"argmax at step {first}, kernel {ms:.3f} ms for {n} samples "
+          f"argmax at step {first}, warm launch == checked launch {repeat}, "
+          f"kernel {ms:.3f} ms for {n} samples "
           f"({ms * 1e3 / n:.1f} us per sample) -> {'ok' if ok else 'FAIL'}")
     return {"ok": ok, "gap": gap, "ms": ms, "gen": gen, "lc": lc}
 
@@ -400,6 +462,12 @@ def resume_case(net, params, batch, gc_ids, temperature, seed):
     lc_r = lc[:, RESUME_T0:]
     codes, k_carry = gen.generate_chunk(carry, N_RESUME, seed=seed, lc=lc_r,
                                         temperature=temperature)
+    for what, out in (("carry", carry[1][:, None]), ("resumed launch", codes)):
+        bad = code_range_fault(out, Q)
+        if bad is not None:
+            print(range_fail(f"carried launch resumed at t0={RESUME_T0}, "
+                             f"B={batch} T={temperature}, {what}", bad, Q))
+            return False, float("inf"), gen, carry, lc_r
     inputs = torch.cat([carry[1][:, None].long(), codes[:, :-1].long()], dim=1)
     logits = []
     _, p_carry = net.sample(params, carry, N_RESUME, seed,
@@ -500,6 +568,12 @@ def primed_case(net, params, batch, gc_ids, temperature, seed):
     # an unprimed launch over P + n samples; its first P inputs (the
     # mid-scale code, then its own codes) become the seed
     free = gen(P + n, seed=seed, batch=batch, lc=lc, temperature=temperature)
+    what = f"primed kernel (P={P}, n={n}) B={batch} gc={gc_ids} T={temperature}"
+    bad = code_range_fault(free, Q)
+    if bad is not None:
+        print(range_fail(f"{what}, its unprimed seed launch", bad, Q))
+        return {"ok": False, "gap": float("inf"), "ms": float("nan"),
+                "plain_ms": float("nan"), "gen": gen}
     seeds = torch.cat([torch.full((batch, 1), Q // 2, device="cuda",
                                   dtype=torch.int32), free[:, :P - 1]], dim=1)
     seeds = seeds.contiguous()
@@ -514,6 +588,11 @@ def primed_case(net, params, batch, gc_ids, temperature, seed):
                     temperature=temperature)
 
     ms = cuda_ms(run)
+    bad = code_range_fault(codes, Q)
+    if bad is not None:
+        print(range_fail(what, bad, Q))
+        return {"ok": False, "gap": float("inf"), "ms": ms,
+                "plain_ms": float("nan"), "gen": gen}
     same = torch.equal(codes, free[:, P - 1:P - 1 + n])
     inputs = torch.cat([seeds, codes[:, :-1]], dim=1)
     torch.cuda.synchronize()
@@ -530,10 +609,8 @@ def primed_case(net, params, batch, gc_ids, temperature, seed):
         scores = scores * (1.0 / temperature) + g.permute(1, 0, 2)
     chosen = scores.gather(-1, codes.long()[..., None])[..., 0]
     gap = (scores.max(dim=-1).values - chosen).max().item()
-    ok = bool(np.isfinite(gap) and gap <= SCORE_TOL and same
-              and int(codes.min()) >= 0 and int(codes.max()) < Q)
-    print(f"primed kernel (P={P}, n={n}) B={batch} gc={gc_ids} T={temperature}: "
-          f"max score gap vs plain {gap:.3g} (tol {SCORE_TOL}), kept codes == "
+    ok = bool(np.isfinite(gap) and gap <= SCORE_TOL and same)
+    print(f"{what}: max score gap vs plain {gap:.3g} (tol {SCORE_TOL}), kept codes == "
           f"unprimed launch fed the same inputs {same}, kernel {ms:.3f} ms "
           f"({ms * 1e3 / (P - 1 + n):.1f} us per step), plain {plain_ms:.1f} ms "
           f"-> {'ok' if ok else 'FAIL'}")
@@ -1346,6 +1423,96 @@ def step_agreement(r) -> tuple:
         f"cpu {r['cpu_s']:.2f} s, card {r['card_s']:.2f} s (first call)")
 
 
+def deferred_vs_autograd(batch) -> float:
+    """The worst leaf (``grad_gap``) of one Tacotron-2 step's float64
+    gradient on the card, published widths, no dropout, with the loops'
+    weight gradients deferred against all of them from autograd."""
+    from nspeech_tpu_torch.config import load_config
+    from nspeech_tpu_torch.models.tacotron2 import Tacotron2
+    from nspeech_tpu_torch.train.loop import (batch_to_device, create_state,
+                                              tacotron_grads)
+    from nspeech_tpu_torch.train.optim import make_optimizer
+    from nspeech_tpu_torch.utils.tree import named_leaves
+
+    cfg = load_config("taco2").parse("drop_rate=0.0")
+    model = Tacotron2(cfg)
+    state = create_state(model, make_optimizer(cfg, "taco2")[0], 0, device="cuda")
+    grads = {}
+    torch.set_default_dtype(torch.float64)        # the decoder's zero carries too
+    try:
+        state, data = to_float64(state, batch_to_device(batch, "cuda"))
+        for deferred in (False, True):
+            grads[deferred] = dict(named_leaves(tacotron_grads(
+                model, state, data, None, deferred_dw=deferred)[0]))
+    finally:
+        torch.set_default_dtype(torch.float32)
+    return grad_gap(grads[False], grads[True])
+
+
+def deferred_timing(corpus: str, tmp: str, card: str) -> None:
+    """Tacotron-2 at batch 32 on the corpus's longest padded batch (T_out
+    900), weight gradients by autograd (A) and deferred (D): warm sec/step
+    in turns A, D, D, A (TURN_STEPS timed steps after one untimed step
+    each) with each turn's peak memory; then one step of each under
+    ``torch.profiler`` (``scripts/torch_train_profile.py --profile-only``'s
+    ``profile_step``): launches, kernel time, busy share and
+    ``aten::add_``'s share of the kernel time, with its costliest input
+    shapes."""
+    import os
+    import statistics
+
+    from nspeech_tpu_torch.config import load_config
+    from nspeech_tpu_torch.data.feeder import DataFeeder
+    from nspeech_tpu_torch.models.tacotron2 import Tacotron2
+    from nspeech_tpu_torch.train.loop import (batch_to_device,
+                                              build_tacotron_train_step,
+                                              create_state, step_generator)
+    from nspeech_tpu_torch.train.optim import make_optimizer
+
+    cfg = load_config("taco2")
+    cache = os.path.join(tmp, "features")
+    longest = max(DataFeeder({"ljspeech": corpus}, cfg, seed=0,
+                             cache_dir=cache).epoch_batches(0),
+                  key=lambda b: b.mel_targets.shape[1])
+    data = batch_to_device(longest, "cuda")
+    model = Tacotron2(cfg)
+    opt, sched = make_optimizer(cfg, "taco2")
+    steps = {d: build_tacotron_train_step(model, opt, sched, deferred_dw=d)
+             for d in (False, True)}
+    state = create_state(model, opt, 0, device="cuda")
+    times, peaks = {False: [], True: []}, {False: 0, True: 0}
+    for d in (False, True, True, False):
+        torch.cuda.reset_peak_memory_stats()
+        for i in range(1 + TURN_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = steps[d](state, data, step_generator("cuda", 0, state.step))
+            float(m["loss"])
+            if i:
+                times[d].append(time.perf_counter() - t0)
+        peaks[d] = max(peaks[d], torch.cuda.max_memory_allocated())
+    del state
+    label = {False: "autograd", True: "deferred"}
+    print(f"train taco2 weight gradients, warm sec/step at batch 32, T_out "
+          f"{data.mel_targets.shape[1]} in turns autograd, deferred, deferred, "
+          f"autograd: " + "; ".join(
+              f"{label[d]} median {statistics.median(times[d]):.4f} s of "
+              f"({', '.join(f'{x:.4f}' for x in times[d])}), peak "
+              f"{peaks[d] / 2**30:.2f} GiB" for d in (False, True)) + f" [{card}]")
+    prof = repo_module("scripts/torch_train_profile.py")
+    rows = []
+    for d in (False, True):
+        r = prof.profile_step(corpus, "", os.path.join(tmp, "profile"),
+                              deferred_dw=d, tables=False, cache_dir=cache)
+        rows.append(f"{label[d]} {r['launches']} launches, kernels "
+                    f"{r['busy_ms']:.1f} ms ({r['busy_ms'] / r['step_ms']:.1%} of "
+                    f"the {r['step_ms']:.1f} ms step), aten::add_ {r['add_ms']:.1f} ms "
+                    f"in {r['add_calls']} calls ({r['add_ms'] / max(r['busy_ms'], 1e-9):.1%} "
+                    f"of the kernel time)")
+    print("train taco2 profiled step (scripts/torch_train_profile.py "
+          "--profile-only, T_out 900): " + "; ".join(rows) + f" [{card}]")
+
+
 def train_phase(tmp: str):
     """Training on the card: the train CLI (``cli.train``, Tacotron-2 at
     the published widths, batch 32, drop_rate 0.5) on a synthetic corpus
@@ -1494,8 +1661,15 @@ def train_phase(tmp: str):
     batch = next(DataFeeder(items[:4], scfg, cache_dir=cache).epoch_batches(0))
     good, line = step_agreement(card_vs_cpu_step(batch))
     ok &= good
-    print(f"train step cuda vs cpu (4 utterances, T_out {batch.mel_targets.shape[1]}): "
-          f"{line} -> {'ok' if good else 'FAIL'} [{card}]")
+    print(f"train step cuda vs cpu (4 utterances, T_out {batch.mel_targets.shape[1]}, "
+          f"weight gradients deferred): {line} -> {'ok' if good else 'FAIL'} [{card}]")
+    gap = deferred_vs_autograd(batch)
+    good = gap <= STEP_GRAD_TOL
+    ok &= good
+    print(f"train step deferred vs autograd weight gradients on the card (4 "
+          f"utterances, float64): worst leaf {gap:.2e} of its largest entry "
+          f"(tol {STEP_GRAD_TOL}) -> {'ok' if good else 'FAIL'} [{card}]")
+    deferred_timing(corpus, tmp, card)
 
     reset_launches()
     out_wav = os.path.join(tmp, "trained.wav")
@@ -2090,6 +2264,88 @@ def bf16_phase(tmp: str):
     return ok, launches, carried
 
 
+def import_phase(tmp: str):
+    """Import of reference (TensorFlow) checkpoints at full width: the
+    reference-named tensors of a seeded Tacotron-2 at its published widths
+    and of the vocoder at the recipe (50 layers, R = DC = 32, S = 512,
+    Q = 256, lc 80, gc 16, 4 speakers), as the ``{name: ndarray}`` mapping
+    the importers take (this machine has no TensorFlow to write a bundle),
+    through ``cli.import_reference_ckpt``'s ``import_checkpoint`` with the
+    tree checked on the card; every imported leaf equal to its source;
+    then one ``cli.synthesize`` request from the two imported checkpoints
+    through the sampler (K1), and the imported Tacotron-2's served mel
+    (``Synthesizer`` on the card) within MEL_TOL of the same checkpoint's
+    forward on the CPU. Returns (ok, one-shot launches)."""
+    import contextlib
+    import io
+    import os
+
+    from scipy.io import wavfile
+
+    from nspeech_tpu_torch.cli import synthesize
+    from nspeech_tpu_torch.cli.import_reference_ckpt import import_checkpoint
+    from nspeech_tpu_torch.config import load_config
+    from nspeech_tpu_torch.models.tacotron2 import Tacotron2
+    from nspeech_tpu_torch.ops.cuda import wavenet_gen
+    from nspeech_tpu_torch.serving import Synthesizer
+    from nspeech_tpu_torch.train import load_serving_params
+    from nspeech_tpu_torch.utils.tree import named_leaves
+
+    card = card_line()
+    names = repo_module("tests/make_reference_ckpt.py")
+    model = Tacotron2(load_config("taco2"))
+    params, bn = model.init(9)
+    _, net, vparams = vocoder(10)
+    sources = {"taco2": (names.taco2_names(params, bn), params),
+               "wavenet": (names.wavenet_names(vparams), vparams)}
+    ok, dirs = True, {}
+    for name, (mapping, tree) in sources.items():
+        t0 = time.perf_counter()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            dirs[name] = import_checkpoint(
+                mapping, os.path.join(tmp, "imported_" + name), step=1000,
+                device="cuda")
+        wall = time.perf_counter() - t0
+        model_of = model if name == "taco2" else net
+        served = dict(named_leaves(load_serving_params(dirs[name], model_of)[0]))
+        source = dict(named_leaves(tree))
+        equal = served.keys() == source.keys() and all(
+            torch.equal(served[k], source[k].cpu()) for k in source)
+        ok &= equal
+        print(f"import {name}: {len(mapping)} reference variables, "
+              f"{sum(v.size for v in mapping.values()):,} values, "
+              f"{buf.getvalue().splitlines()[-2]}; {wall:.2f} s; imported "
+              f"leaves equal to the source {equal} -> "
+              f"{'ok' if equal else 'FAIL'} [{card}]")
+    text = "Imported weights speak through the sampler."
+    reset_launches()
+    out_wav = os.path.join(tmp, "imported.wav")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        synthesize.main(["--checkpoint", dirs["taco2"], "--hparams",
+                         f"max_iters={MAX_ITERS}", "--vocoder-checkpoint",
+                         dirs["wavenet"], "--text", text, "--out", out_wav])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    one = wavenet_gen.SAMPLER.launches
+    sr, wav = wavfile.read(out_wav)
+    syn = Synthesizer.from_checkpoint(dirs["taco2"], overrides=f"max_iters={MAX_ITERS}")
+    _, mel, _ = syn.synthesize(text)
+    cpu_params, cpu_bn = load_serving_params(dirs["taco2"], syn.model, device="cpu")
+    ref = one_shot_mels(syn, [text], None, cpu_params, cpu_bn)[0]
+    gap = float(np.abs(mel - ref[: mel.shape[0]]).max())
+    good = (one == 1 and wav.size > 0 and sr == syn.cfg.sample_rate
+            and gap <= MEL_TOL)
+    ok &= good
+    print(f"cli synthesize from the imported checkpoints through the sampler: "
+          f"{wall:.3f} s wall, launches one-shot {one}, wav {wav.size} samples; "
+          f"served mel {mel.shape} vs the CPU forward of the same checkpoint "
+          f"max |diff| {gap:.3g} (tol {MEL_TOL}) -> {'ok' if good else 'FAIL'} "
+          f"[{card}]")
+    return ok, one
+
+
 def loader_phase(tmp: str) -> bool:
     """The C++ audio loader built with this machine's g++: a seeded 5 s
     WAV at 22,050 Hz (resampled to 20,000 Hz) and a 5 s FLAC at 20,000 Hz
@@ -2097,7 +2353,6 @@ def loader_phase(tmp: str) -> bool:
     ``dsp/flacio.py``), within 1e-3 where the file is resampled and 1e-6
     where it is not (the bounds of the JAX package's loader tests); ms per
     utterance for each."""
-    import importlib.util
     import os
 
     from scipy.io import wavfile
@@ -2105,12 +2360,7 @@ def loader_phase(tmp: str) -> bool:
     from nspeech_tpu_torch import native
     from nspeech_tpu_torch.dsp.wavio import load_wav as py_load_wav
 
-    # the repository's FLAC writer, by path (another package may own the
-    # name ``tests`` on this machine)
-    spec = importlib.util.spec_from_file_location("make_flac", os.path.join(
-        os.path.dirname(os.path.abspath(__file__)), "tests", "make_flac.py"))
-    make_flac = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(make_flac)
+    make_flac = repo_module("tests/make_flac.py")
 
     card = card_line()
     t0 = time.perf_counter()
@@ -2179,6 +2429,8 @@ def main() -> int:
         bf16_ok, one, more = bf16_phase(tmp)
         record["launches"] += one
         carried["launches"] += more
+        import_ok, one = import_phase(tmp)
+        record["launches"] += one
     print(f"smoke took {time.perf_counter() - start:.1f} s after the card line")
     for rec in (record, carried, primed):
         for form, ms, bound in rec.pop("per_sample"):
@@ -2187,7 +2439,7 @@ def main() -> int:
     print(json.dumps({"kernels": [record, carried, primed]}))
     if not (record["checked"] and carried["checked"] and primed["checked"]
             and e2e_ok and stream_ok and taco1_ok and server_ok and cli_ok
-            and train_ok and wn_ok and bf16_ok and loader_ok):
+            and train_ok and wn_ok and bf16_ok and loader_ok and import_ok):
         print("FAIL", file=sys.stderr)
         return 1
     print(json.dumps({"ok": True, "device": {

@@ -15,6 +15,8 @@ that resume (``train/<step>.pt``) and serve (``serving/<step>.npz`` and
 (``data/device_cache.py``). ``--hparams compute_dtype=bfloat16`` trains
 under the bf16 compute policy (``ops/policy.py``: float32 masters, bf16
 forward) and ``--matmul-precision`` sets the card's float32 products.
+``--git`` refuses a working tree with uncommitted changes and logs the
+short hash of HEAD.
 WaveNet trains with ``nspeech_tpu_torch.cli.train_wavenet``. Options of
 the JAX trainer whose modules the port does not have yet exit with the
 ``ROADMAP.md`` item that holds them.
@@ -45,7 +47,7 @@ from nspeech_tpu_torch.train.metadata import (config_from_checkpoint,
                                               save_run_metadata)
 from nspeech_tpu_torch.train.optim import make_optimizer
 from nspeech_tpu_torch.train.runner import run_training
-from nspeech_tpu_torch.utils import infolog, plot, time_string
+from nspeech_tpu_torch.utils import get_git_commit, infolog, plot, time_string
 from nspeech_tpu_torch.utils.infolog import log
 
 TRAINABLE = ("taco1", "taco2")
@@ -342,6 +344,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--device", default="cuda",
                         help="cuda (one card) or cpu")
     add_matmul_precision(parser)
+    parser.add_argument("--git", action="store_true",
+                        help="Verify the working tree is clean")
     return parser
 
 
@@ -361,6 +365,8 @@ def main(argv=None) -> None:
     infolog.init(os.path.join(log_dir, "train.log"), run_name, args.slack_url)
     if args.hparams_from:
         log("hparams base: run metadata from %s" % args.hparams_from)
+    if args.git:
+        get_git_commit()
     train(log_dir, args, cfg, device)
 
 

@@ -59,7 +59,12 @@ def scan_teacher(step: Callable, carry0, inputs: torch.Tensor,
     ``sampling_ratio`` > 0 is scheduled sampling: at each step each row
     feeds its own previous predicted frame in place of the teacher frame
     with that probability (a Bernoulli draw from ``generator``). The
-    fed-back frame is detached, as the JAX package's ``stop_gradient``."""
+    fed-back frame is detached, as the JAX package's ``stop_gradient``.
+
+    The loop also serves deferred weight gradients (``ops/deferred.py``):
+    the JAX package needs ``scan_teacher_deferred`` to thread per-step
+    injections through ``lax.scan``; here a deferred ``step`` taps its
+    products into an ``ops.deferred.Taps``, which counts the steps."""
     num_mels = inputs.shape[-1]
     carry = carry0
     prev = torch.zeros_like(inputs[0])   # step 0's teacher input is GO

@@ -128,14 +128,18 @@ def init_conv_and_lstm(rng, in_dim: int, conv_layers: int, conv_width: int,
 
 
 def conv_and_lstm(params, state, meta, x: torch.Tensor, lengths,
-                  is_training: bool = False):
-    """Conv+BN stack (ReLU on all but the last conv) then a BiLSTM."""
+                  is_training: bool = False, taps=None, name: str = ""):
+    """Conv+BN stack (ReLU on all but the last conv) then a BiLSTM, whose
+    recurrent kernels' gradients are deferred when ``taps`` holds
+    ``name`` (``layers.bilstm_rnn``)."""
     conv_bn, new_state = _conv_bn_stack(is_training)
     n = len(params["convs"])
     for i, (p, s) in enumerate(zip(params["convs"], state["convs"])):
         x = conv_bn("convs", p, s, x, torch.relu if i < n - 1 else None)
+    if taps is not None and name not in taps:
+        taps = None
     out = L.bilstm_rnn(params["lstm_fw"], params["lstm_bw"], x, lengths,
-                       meta["lstm_units"])
+                       meta["lstm_units"], taps=taps, name=name)
     return (out, new_state) if is_training else out
 
 

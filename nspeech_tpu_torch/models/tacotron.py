@@ -27,6 +27,7 @@ from nspeech_tpu_torch.config import Config
 from nspeech_tpu_torch.models import attention as A
 from nspeech_tpu_torch.models import decoder as D
 from nspeech_tpu_torch.models import modules as M
+from nspeech_tpu_torch.ops import deferred as DF
 from nspeech_tpu_torch.ops import layers as L
 from nspeech_tpu_torch.ops import policy as P
 from nspeech_tpu_torch.text.symbols import symbols
@@ -89,10 +90,13 @@ class Tacotron1:
 
     def _make_step(self, params, keys_mem, values, mask, spk,
                    is_training: bool = False,
-                   generator: Optional[torch.Generator] = None):
+                   generator: Optional[torch.Generator] = None,
+                   deferred: Optional[DF.Taps] = None):
         """The decoder step ``(carry, x) -> (carry, (out, align))``. In
         training the prenet drops at ``drop_rate`` (from ``generator``)
-        and attention is not windowed."""
+        and attention is not windowed. With ``deferred`` (taps from
+        :meth:`deferred_zero_inputs`) the three GRU cells and both
+        projections defer their weight gradients (``ops/deferred.py``)."""
         cfg = self.cfg
         att_type = cfg.attention_type
         drop = cfg.drop_rate if is_training else 0.0
@@ -101,24 +105,76 @@ class Tacotron1:
         spk_pre = (None if spk is None
                    else L.dense(params["spk_prenet"], spk, L.softsign))
 
+        def gru(name, x, h):
+            if deferred is not None:
+                return DF.gru_cell_deferred(params[name], x, h, deferred, name)
+            return L.gru_cell(params[name], x, h)
+
+        def dense(name, x):
+            if deferred is not None:
+                return DF.dense_deferred(params[name], x, deferred, name)
+            return L.dense(params[name], x)
+
         def step(carry, x):
             h1, context, align, h2, h3 = carry
             pre = L.prenet(params["decoder_prenet"],
                            torch.cat([x, context], dim=-1), drop, generator)
             if spk_pre is not None:
                 pre = torch.cat([pre, spk_pre], dim=-1)
-            h1 = L.gru_cell(params["attn_gru"], pre, h1)
+            h1 = gru("attn_gru", pre, h1)
             m = A.window_mask(align, mask, win_back, win_fwd) if win_fwd > 0 else mask
             context, align = A.attention_step(params["attention"], att_type, h1,
                                               align, keys_mem, values, m)
-            proj = L.dense(params["out_proj"], torch.cat([h1, context], dim=-1))
-            g2 = L.gru_cell(params["gru2"], proj, h2)
+            proj = dense("out_proj", torch.cat([h1, context], dim=-1))
+            g2 = gru("gru2", proj, h2)
             o2 = proj + g2
-            g3 = L.gru_cell(params["gru3"], o2, h3)
-            out = L.dense(params["frame_proj"], o2 + g3)
+            g3 = gru("gru3", o2, h3)
+            out = dense("frame_proj", o2 + g3)
             return (h1, context, align, g2, g3), (out, align)
 
         return step
+
+    def deferred_zero_inputs(self, batch: int, steps: int,
+                             t_in: Optional[int] = None,
+                             t_out: Optional[int] = None) -> DF.Taps:
+        """The taps of a deferred training forward (``ops/deferred.py``):
+        both kernels of each decoder GRU and the two projections over
+        ``steps`` decoder steps, named and shaped as the JAX package's zero
+        injections. ``t_in`` / ``t_out`` are taken for Tacotron-2's
+        signature: the CBHG BiGRUs keep autograd's gradients, as in the
+        JAX package (their recurrent kernels are [128, ...])."""
+        del t_in, t_out
+        cfg = self.cfg
+        shapes = {}
+        for name, units in (("attn_gru", cfg.attention_dim),
+                            ("gru2", cfg.decoder_dim), ("gru3", cfg.decoder_dim)):
+            shapes[name + "_gate"] = (steps, batch, 2 * units)
+            shapes[name + "_cand"] = (steps, batch, units)
+        shapes["out_proj"] = (steps, batch, cfg.decoder_dim)
+        shapes["frame_proj"] = (steps, batch, cfg.num_mels * cfg.outputs_per_step)
+        return DF.Taps(shapes)
+
+    def deferred_param_grads(self, taps: DF.Taps):
+        """``{param name: gradients}`` of the deferred products from
+        ``taps``."""
+        g = {}
+        for cell in ("attn_gru", "gru2", "gru3"):
+            d = DF.matmul_grads(*taps.stacked(cell + "_gate"), "gate_kernel",
+                                "gate_bias")
+            d.update(DF.matmul_grads(*taps.stacked(cell + "_cand"),
+                                     "cand_kernel", "cand_bias"))
+            g[cell] = d
+        for name in ("out_proj", "frame_proj"):
+            g[name] = DF.matmul_grads(*taps.stacked(name))
+        return g
+
+    def deferred_merge_grads(self, grads, taps: DF.Taps):
+        """Fill the weight gradients that a deferred forward left out of
+        ``grads`` (autograd's) from ``taps``."""
+        for name, g in self.deferred_param_grads(taps).items():
+            grads[name] = {k: v.to(grads[name][k].dtype)
+                           for k, v in g.items() if k in grads[name]}
+        return grads
 
     def _cast(self, tree):
         return P.entry_cast(tree, P.compute_dtype(self.cfg))
@@ -203,7 +259,8 @@ class Tacotron1:
                       input_lengths: torch.Tensor,
                       speaker_ids: Optional[torch.Tensor],
                       mel_targets: torch.Tensor, is_training: bool = True,
-                      generator: Optional[torch.Generator] = None):
+                      generator: Optional[torch.Generator] = None,
+                      deferred: Optional[DF.Taps] = None):
         """Teacher-forced forward, as :meth:`Tacotron2.forward_train`:
         returns ``(outputs, new_bn_state)``."""
         cfg = self.cfg
@@ -214,7 +271,7 @@ class Tacotron1:
                                       input_lengths, speaker_ids, is_training,
                                       generator)
         step = self._make_step(params, *ctx, is_training=is_training,
-                               generator=generator)
+                               generator=generator, deferred=deferred)
         ss = float(cfg.get("scheduled_sampling_ratio", 0.0)) if is_training else 0.0
         outs, aligns = D.scan_teacher(
             step, self._decoder_carry0(n, t_in, text_inputs.device),

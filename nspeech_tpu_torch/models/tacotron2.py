@@ -29,6 +29,7 @@ from nspeech_tpu_torch.models import attention as A
 from nspeech_tpu_torch.models import decoder as D
 from nspeech_tpu_torch.models import modules as M
 from nspeech_tpu_torch.models.tacotron import tacotron_loss
+from nspeech_tpu_torch.ops import deferred as DF
 from nspeech_tpu_torch.ops import layers as L
 from nspeech_tpu_torch.ops import policy as P
 from nspeech_tpu_torch.text.symbols import symbols
@@ -90,10 +91,13 @@ class Tacotron2:
 
     def _make_step(self, params, keys_mem, values, mask, spk,
                    is_training: bool = False,
-                   generator: Optional[torch.Generator] = None):
+                   generator: Optional[torch.Generator] = None,
+                   deferred: Optional[DF.Taps] = None):
         """The decoder step ``(carry, x) -> (carry, (out, align))``. In
         training the prenet drops at ``drop_rate`` (from ``generator``)
-        and attention is not windowed."""
+        and attention is not windowed. With ``deferred`` (taps from
+        :meth:`deferred_zero_inputs`) the three LSTM cells and the frame
+        projection defer their weight gradients (``ops/deferred.py``)."""
         cfg = self.cfg
         drop = cfg.drop_rate if is_training else 0.0
         win_fwd = 0 if is_training else int(cfg.get("attention_win_fwd", 0))
@@ -101,25 +105,77 @@ class Tacotron2:
         spk_pre = (None if spk is None
                    else L.dense(params["spk_prenet"], spk, L.softsign))
 
+        def lstm(name, x, state):
+            if deferred is not None:
+                return DF.lstm_cell_deferred(params[name], x, state, deferred,
+                                             name)
+            return L.lstm_cell(params[name], x, state)
+
         def step(carry, x):
             (c1, h1), context, align, (c2, h2), (c3, h3) = carry
             pre = L.prenet(params["decoder_prenet"],
                            torch.cat([x, context], dim=-1), drop, generator)
             if spk_pre is not None:
                 pre = torch.cat([pre, spk_pre], dim=-1)
-            out1, (c1, h1) = L.lstm_cell(params["attn_lstm"], pre, (c1, h1))
+            out1, (c1, h1) = lstm("attn_lstm", pre, (c1, h1))
             m = A.window_mask(align, mask, win_back, win_fwd) if win_fwd > 0 else mask
             context, align = A.attention_step(params["attention"],
                                               "location_sensitive", out1, align,
                                               keys_mem, values, m)
-            out2, (c2, h2) = L.lstm_cell(params["lstm1"],
-                                         torch.cat([out1, context], dim=-1),
-                                         (c2, h2))
-            out3, (c3, h3) = L.lstm_cell(params["lstm2"], out2, (c3, h3))
-            out = L.dense(params["frame_proj"], out3)
+            out2, (c2, h2) = lstm("lstm1", torch.cat([out1, context], dim=-1),
+                                  (c2, h2))
+            out3, (c3, h3) = lstm("lstm2", out2, (c3, h3))
+            if deferred is not None:
+                out = DF.dense_deferred(params["frame_proj"], out3, deferred,
+                                        "frame_proj")
+            else:
+                out = L.dense(params["frame_proj"], out3)
             return ((c1, h1), context, align, (c2, h2), (c3, h3)), (out, align)
 
         return step
+
+    def deferred_zero_inputs(self, batch: int, steps: int,
+                             t_in: Optional[int] = None,
+                             t_out: Optional[int] = None) -> DF.Taps:
+        """The taps of a deferred training forward (``ops/deferred.py``):
+        the attention LSTM, the two decoder LSTMs and the frame projection
+        over ``steps`` decoder steps; with ``t_in`` / ``t_out`` also the
+        recurrent kernels of the encoder / expand BiLSTM (loops at text
+        and frame rate). Named and shaped as the JAX package's zero
+        injections."""
+        cfg = self.cfg
+        shapes = {
+            "attn_lstm": (steps, batch, 4 * cfg.attention_dim),
+            "lstm1": (steps, batch, 4 * cfg.decoder_lstm_units),
+            "lstm2": (steps, batch, 4 * cfg.decoder_lstm_units),
+            "frame_proj": (steps, batch, cfg.num_mels * cfg.outputs_per_step),
+        }
+        if t_in is not None:
+            shapes["encoder_lstm"] = (t_in, 2 * batch, 4 * cfg.encoder_lstm_units)
+        if t_out is not None:
+            shapes["expand_lstm"] = (t_out, 2 * batch, 4 * cfg.expand_lstm_units)
+        return DF.Taps(shapes)
+
+    def deferred_merge_grads(self, grads, taps: DF.Taps):
+        """Fill the weight gradients that a deferred forward left out of
+        ``grads`` (autograd's) from ``taps``: each decoder product's kernel
+        and bias, and the recurrent rows of each tapped BiLSTM kernel."""
+        for name in ("attn_lstm", "lstm1", "lstm2", "frame_proj"):
+            g = DF.matmul_grads(*taps.stacked(name))
+            grads[name] = {k: v.to(grads[name][k].dtype)
+                           for k, v in g.items() if k in grads[name]}
+        for comp in ("encoder", "expand"):
+            key = comp + "_lstm"
+            if key not in taps:
+                continue
+            for d, dwh in zip(("lstm_fw", "lstm_bw"),
+                              DF.bilstm_wh_grads(*taps.stacked(key))):
+                # the recurrent rows are zero in autograd's gradient (the
+                # loop read them detached); the input rows and the bias
+                # got theirs through the hoisted input product
+                k = grads[comp][d]["kernel"]
+                k[-dwh.shape[0]:] = dwh.to(k.dtype)
+        return grads
 
     def _cast(self, tree):
         return P.entry_cast(tree, P.compute_dtype(self.cfg))
@@ -141,7 +197,7 @@ class Tacotron2:
     # -- streaming hooks ------------------------------------------------------
 
     def _encode(self, params, state, text_inputs, input_lengths, speaker_ids,
-                is_training: bool):
+                is_training: bool, deferred: Optional[DF.Taps] = None):
         """``(step_ctx, encoder BN state)``: the attention keys, memory,
         mask and speaker embedding the decoder step reads."""
         t_in = text_inputs.shape[1]
@@ -151,7 +207,8 @@ class Tacotron2:
             spk = params["speaker_embed"]["table"][speaker_ids]
         enc_out, enc_state = M.with_state(
             M.conv_and_lstm(params["encoder"], state["encoder"], self._enc_meta,
-                            embedded, input_lengths, is_training),
+                            embedded, input_lengths, is_training,
+                            deferred, "encoder_lstm"),
             state["encoder"], is_training)
         keys_mem = A.prepare_memory(params["attention"], enc_out)
         # max(len, 1) keeps the softmax finite for length-0 padding rows
@@ -213,14 +270,18 @@ class Tacotron2:
                       input_lengths: torch.Tensor,
                       speaker_ids: Optional[torch.Tensor],
                       mel_targets: torch.Tensor, is_training: bool = True,
-                      generator: Optional[torch.Generator] = None):
+                      generator: Optional[torch.Generator] = None,
+                      deferred: Optional[DF.Taps] = None):
         """Teacher-forced forward (``is_training`` and ``mel_targets`` of
         the JAX package's ``forward``): returns ``(outputs, new_bn_state)``
         with mel_outputs [N, T_out, M], linear_outputs [N, T_out, F],
         alignments [N, T_in, S] and, when the penalty is on,
         guided_attention. In training, dropout and scheduled sampling draw
         from ``generator``; with ``is_training=False`` (the holdout loss,
-        the training previews) batch norm reads its running statistics."""
+        the training previews) batch norm reads its running statistics.
+        ``deferred`` (:meth:`deferred_zero_inputs`) defers the weight
+        gradients of the products it names; :meth:`deferred_merge_grads`
+        then completes autograd's gradient."""
         cfg = self.cfg
         n, t_in = text_inputs.shape
         # the policy's entry: float32 masters stay outside, and autograd
@@ -228,9 +289,10 @@ class Tacotron2:
         params = self._cast(params)
         mel_targets = self._cast(mel_targets)
         ctx, enc_state = self._encode(params, state, text_inputs,
-                                      input_lengths, speaker_ids, is_training)
+                                      input_lengths, speaker_ids, is_training,
+                                      deferred)
         step = self._make_step(params, *ctx, is_training=is_training,
-                               generator=generator)
+                               generator=generator, deferred=deferred)
         ss = float(cfg.get("scheduled_sampling_ratio", 0.0)) if is_training else 0.0
         outs, aligns = D.scan_teacher(
             step, self._decoder_carry0(n, t_in, text_inputs.device),
@@ -243,7 +305,8 @@ class Tacotron2:
         mel_outputs = decoder_out + residual
         expand_out, expand_state = M.with_state(
             M.conv_and_lstm(params["expand"], state["expand"],
-                            self._expand_meta, mel_outputs, None, is_training),
+                            self._expand_meta, mel_outputs, None, is_training,
+                            deferred, "expand_lstm"),
             state["expand"], is_training)
         outputs = {"mel_outputs": mel_outputs,
                    "linear_outputs": L.dense(params["linear_proj"], expand_out),

@@ -348,17 +348,26 @@ def reverse_sequence(x: torch.Tensor, lengths: Optional[torch.Tensor]) -> torch.
 
 def bilstm_rnn(params_fw: Params, params_bw: Params, x: torch.Tensor,
                lengths: Optional[torch.Tensor], units: int,
-               forget_bias: float = 1.0) -> torch.Tensor:
+               forget_bias: float = 1.0, taps=None,
+               name: str = "") -> torch.Tensor:
     """Bidirectional LSTM over [N, T, C] -> [N, T, 2*units].
 
     Both directions step together (the reversed copy is stacked on the
     batch axis) and the input projection of every step is one matmul
     outside the loop. Past each row's length, outputs are zero and the
-    state is held."""
+    state is held.
+
+    ``taps`` (an ``ops.deferred.Taps`` holding ``name`` [T, 2N, 4*units])
+    defers the recurrent kernels' gradients: the ``h @ wh`` rows enter
+    the loop detached, each step's pre-activation is tapped with the
+    entry state as its input, and ``deferred.bilstm_wh_grads`` recovers
+    them after the backward pass."""
     N, T, C = x.shape
     x2 = torch.cat([x, reverse_sequence(x, lengths)], dim=0)      # [2N, T, C]
     wx = torch.stack([params_fw["kernel"][:C], params_bw["kernel"][:C]])
     wh = torch.stack([params_fw["kernel"][C:], params_bw["kernel"][C:]])
+    if taps is not None:
+        wh = wh.detach()
     b = torch.stack([params_fw["bias"], params_bw["bias"]])        # [2, 4H]
     xz = (acc_einsum("gntc,gcz->gntz", x2.reshape(2, N, T, C), wx)
           + b[:, None, None]).reshape(2 * N, T, 4 * units)
@@ -370,7 +379,10 @@ def bilstm_rnn(params_fw: Params, params_bw: Params, x: torch.Tensor,
     outs = []
     for t in range(T):
         hz = torch.bmm(h.reshape(2, N, units), wh).reshape(2 * N, 4 * units)
-        new_c, new_h = _lstm_gates(xz[:, t] + hz, c, forget_bias)
+        pre = xz[:, t] + hz
+        if taps is not None:
+            pre = taps.tap(name, pre, h)
+        new_c, new_h = _lstm_gates(pre, c, forget_bias)
         out = new_h
         if mask is not None:
             mt = mask[:, t]

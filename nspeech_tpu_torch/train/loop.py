@@ -4,10 +4,10 @@
 One step is the forward in training mode (teacher-forced for a Tacotron),
 the loss, its gradients by autograd, the clip and Adam update of
 ``train/optim.py``, and the EMA of the parameters after the update. The
-JAX package's Tacotron step rearranges the decoder's weight gradients
-(``ops/deferred.py``) to work around XLA's scan transpose; autograd
-computes the same gradients directly, so the port has no such
-rearrangement. A feeder batch (numpy) reaches the device through pinned
+Tacotron step defers the weight gradients of the products inside its
+loops by default, as the JAX package's does (``ops/deferred.py``):
+autograd alone forms and adds a full-size weight gradient at every
+decoder step. A feeder batch (numpy) reaches the device through pinned
 host memory; a batch already on the device (``data/device_cache.py``)
 passes through.
 """
@@ -131,31 +131,49 @@ def _grads(loss: torch.Tensor, params):
 
 
 def tacotron_grads(model, state: TrainState, batch: TacotronBatch,
-                   generator: Optional[torch.Generator]):
+                   generator: Optional[torch.Generator],
+                   deferred_dw: Optional[bool] = None):
     """(grads, metrics, new_bn_state) of the training loss at
-    ``state.params``."""
+    ``state.params``. ``deferred_dw`` (default: on when the model has
+    ``deferred_zero_inputs``) defers the loops' weight gradients
+    (``ops/deferred.py``); False takes all of them from autograd."""
+    if deferred_dw is None:
+        deferred_dw = hasattr(model, "deferred_zero_inputs")
+    taps = None
+    if deferred_dw:
+        n, t_out = batch.mel_targets.shape[:2]
+        taps = model.deferred_zero_inputs(
+            n, t_out // model.cfg.outputs_per_step,
+            t_in=batch.inputs.shape[1], t_out=t_out)
     params = _trainable(state.params)
     outputs, new_bn = model.forward_train(
         params, state.bn_state, batch.inputs, batch.input_lengths,
         batch.speaker_ids, batch.mel_targets, is_training=True,
-        generator=generator)
+        generator=generator, deferred=taps)
     loss, metrics = model.loss(outputs, batch.mel_targets, batch.linear_targets)
     grads = _grads(loss, params)
+    if taps is not None:
+        with torch.no_grad():
+            grads = model.deferred_merge_grads(grads, taps)
     metrics = {k: v.detach() for k, v in metrics.items()}
     return grads, metrics, new_bn
 
 
 def build_tacotron_train_step(model, optimizer, schedule=None,
-                              ema_decay: float = 0.0):
+                              ema_decay: float = 0.0,
+                              deferred_dw: Optional[bool] = None):
     """``step_fn(state, batch, generator) -> (state, metrics)`` for
     Tacotron-1/2 on a :class:`TacotronBatch`. Dropout and scheduled
     sampling draw from ``generator`` (on the batch's device). The metrics
     stay on the device: the loss terms, ``grad_norm`` (before the clip),
-    ``grad_norms`` (per leaf) and ``learning_rate`` (a float)."""
+    ``grad_norms`` (per leaf) and ``learning_rate`` (a float).
+    ``deferred_dw`` as in :func:`tacotron_grads`: on by default, as the
+    JAX package's step."""
 
     def step_fn(state: TrainState, batch: TacotronBatch,
                 generator: Optional[torch.Generator]):
-        grads, metrics, new_bn = tacotron_grads(model, state, batch, generator)
+        grads, metrics, new_bn = tacotron_grads(model, state, batch, generator,
+                                                deferred_dw)
         with torch.no_grad():
             updates, new_opt = optimizer.update(grads, state.opt_state)
             new_params = apply_updates(state.params, updates)

@@ -1,10 +1,13 @@
 """Utilities: run logging, metric files, spectrogram and alignment images,
-parameter trees."""
+parameter trees, the run's git stamp."""
 
 from __future__ import annotations
 
+import subprocess
 from collections import deque
 from datetime import datetime
+
+from nspeech_tpu_torch.utils.infolog import log
 
 
 class ValueWindow:
@@ -23,6 +26,27 @@ class ValueWindow:
     @property
     def average(self) -> float:
         return sum(self._buf) / len(self._buf) if self._buf else 0.0
+
+
+def get_git_commit(require_clean: bool = True) -> str:
+    """Short hash of HEAD of the working directory's repository, logged
+    for stamping a run; refuses a dirty tree by default (a copy of the JAX
+    package's helper). A stamp that does not match the code that ran is
+    worse than none."""
+    dirty = subprocess.run(
+        ["git", "diff-index", "--quiet", "HEAD"],
+        stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL,
+    ).returncode != 0
+    if dirty and require_clean:
+        raise RuntimeError(
+            "working tree has uncommitted changes; commit (or pass "
+            "--git=False) before stamping a training run")
+    head = subprocess.run(
+        ["git", "rev-parse", "--short=10", "HEAD"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip()
+    log(f"git commit: {head}" + (" (dirty tree)" if dirty else ""))
+    return head
 
 
 def time_string() -> str:

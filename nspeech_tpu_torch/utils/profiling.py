@@ -33,15 +33,16 @@ DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
 @contextlib.contextmanager
-def trace(log_dir: str):
-    """Profile the block; yields the ``torch.profiler.profile`` object."""
+def trace(log_dir: str, record_shapes: bool = False):
+    """Profile the block; yields the ``torch.profiler.profile`` object
+    (recording each operation's input shapes with ``record_shapes``)."""
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
-    with profile(activities=activities) as prof:
+    with profile(activities=activities, record_shapes=record_shapes) as prof:
         yield prof
     stamp = time.strftime("%Y%m%d-%H%M%S") + "-%d" % os.getpid()
     raw = os.path.join(log_dir, stamp + ".trace.json")

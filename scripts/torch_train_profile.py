@@ -35,7 +35,11 @@ the wall time of 5 warm steps (after 2 warm-up steps), the peak memory,
 and one step under ``torch.profiler`` as above.
 
 ``--hparams k=v,...`` applies to the profiled step's configuration (for
-example ``compute_dtype=bfloat16``); ``--profile-only`` skips part 1.
+example ``compute_dtype=bfloat16``); ``--profile-only`` skips part 1;
+``--no-deferred`` profiles the Tacotron-2 step with every weight
+gradient from autograd (``deferred_dw=False``) in place of the default
+deferred step. The summary line gives ``aten::add_``'s share of the
+kernel time and its costliest input shapes.
 The profiled step is also written as a Chrome trace under
 ``--trace-dir`` (default ``build/profile``; ``utils/profiling.py``
 ``trace``) and its 15 costliest device operations printed from that trace
@@ -196,29 +200,49 @@ def gradient_errors(items) -> None:
               f"{abs(ug - uc) / uc:.2e}")
 
 
-def print_profile(step, state, data, step_ms: float, log_dir: str) -> None:
+def print_profile(step, state, data, step_ms: float, log_dir: str,
+                  tables: bool = True) -> dict:
     """One ``step(state, data)`` under ``torch.profiler``: device time and
-    host time by operation, launches, and the kernel time's share of
+    host time by operation, launches, the kernel time's share of
     ``step_ms``, the step's unprofiled wall time (the profiler's own
-    start-up stretches the profiled step's wall time)."""
+    start-up stretches the profiled step's wall time), and the share of
+    the kernel time spent in ``aten::add_`` (autograd accumulating
+    gradients, the optimizer's and the EMA's adds) with its 5 costliest
+    input shapes. Returns those numbers; ``tables=False`` prints the
+    summary lines alone."""
     from nspeech_tpu_torch.utils import profiling
 
-    with profiling.trace(log_dir) as prof:
+    with profiling.trace(log_dir, record_shapes=True) as prof:
         state, m = step(state, data, step_generator("cuda", 0, 3))
         float(m["loss"])
         torch.cuda.synchronize()
     ka = prof.key_averages()
     kernels = [e for e in ka if e.device_type.name == "CUDA"]
     busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    add = next((e for e in ka if e.key == "aten::add_"), None)
+    add_ms = 0.0 if add is None else add.device_time_total / 1e3
+    out = {"busy_ms": busy, "step_ms": step_ms, "add_ms": add_ms,
+           "launches": sum(e.count for e in kernels),
+           "add_calls": 0 if add is None else add.count}
     print(f"device busy {busy:.1f} ms (sum of kernel times) in the profiled "
           f"step, {busy / step_ms:.1%} of the unprofiled {step_ms:.1f} ms; kernel "
-          f"launches {sum(e.count for e in kernels)}")
-    print(ka.table(sort_by="self_device_time_total", row_limit=15,
-                   max_name_column_width=50))
-    print(ka.table(sort_by="cpu_time_total", row_limit=12,
-                   max_name_column_width=50))
-    print(f"trace {log_dir}: the 15 costliest device operations")
-    profiling.print_trace_summary(log_dir, 15)
+          f"launches {out['launches']}; aten::add_ {add_ms:.1f} ms of device "
+          f"time in {out['add_calls']} calls, {add_ms / max(busy, 1e-9):.1%} of "
+          f"the kernel time")
+    rows = sorted((e for e in prof.key_averages(group_by_input_shape=True)
+                   if e.key == "aten::add_"), key=lambda e: -e.device_time_total)
+    out["add_by_shape"] = [(e.input_shapes[0], e.count, e.device_time_total / 1e3)
+                           for e in rows[:5]]
+    print("aten::add_ by input shape: " + "; ".join(
+        f"{shape} x{n}: {ms:.1f} ms" for shape, n, ms in out["add_by_shape"]))
+    if tables:
+        print(ka.table(sort_by="self_device_time_total", row_limit=15,
+                       max_name_column_width=50))
+        print(ka.table(sort_by="cpu_time_total", row_limit=12,
+                       max_name_column_width=50))
+        print(f"trace {log_dir}: the 15 costliest device operations")
+        profiling.print_trace_summary(log_dir, 15)
+    return out
 
 
 def wavenet_gradient_errors(corpus, n_windows: int = 8) -> None:
@@ -280,27 +304,40 @@ def profile_wavenet(corpus, extra: str, trace_dir: str) -> None:
     print_profile(step, state, data, sorted(times)[2] * 1e3, trace_dir)
 
 
-def profile_step(corpus, extra: str, trace_dir: str) -> None:
+def profile_step(corpus, extra: str, trace_dir: str, deferred_dw: bool = True,
+                 tables: bool = True, cache_dir=None) -> dict:
+    """The Tacotron-2 step at batch 32 on the corpus's longest batch (its
+    features cached in ``cache_dir`` when given), with the loops' weight
+    gradients deferred (the default) or all from autograd: its wall time
+    after two warm-up steps, its peak memory, then :func:`print_profile`
+    of it; returns the profile's numbers with ``peak_gib``."""
     cfg = load_config("taco2").parse(extra)
-    batches = list(DataFeeder({"ljspeech": corpus}, cfg, seed=0).epoch_batches(0))
+    batches = list(DataFeeder({"ljspeech": corpus}, cfg, seed=0,
+                              cache_dir=cache_dir).epoch_batches(0))
     longest = max(batches, key=lambda b: b.mel_targets.shape[1])
     model = Tacotron2(cfg)
     opt, sched = make_optimizer(cfg, "taco2")
     state = create_state(model, opt, 0, device="cuda")
-    step = build_tacotron_train_step(model, opt, sched)
+    step = build_tacotron_train_step(model, opt, sched, deferred_dw=deferred_dw)
     data = batch_to_device(longest, "cuda")
     for i in range(2):
         state, m = step(state, data, step_generator("cuda", 0, i))
         float(m["loss"])
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     state, m = step(state, data, step_generator("cuda", 0, 2))
     float(m["loss"])
     wall = time.perf_counter() - t0
-    print(f"step ({cfg.compute_dtype}) at batch {data.mel_targets.shape[0]}, T_in "
-          f"{data.inputs.shape[1]}, T_out {data.mel_targets.shape[1]}: "
-          f"{wall * 1e3:.1f} ms")
-    print_profile(step, state, data, wall * 1e3, trace_dir)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"step ({cfg.compute_dtype}, weight gradients "
+          f"{'deferred' if deferred_dw else 'by autograd'}) at batch "
+          f"{data.mel_targets.shape[0]}, T_in {data.inputs.shape[1]}, T_out "
+          f"{data.mel_targets.shape[1]}: {wall * 1e3:.1f} ms, peak memory "
+          f"{peak:.2f} GiB")
+    out = print_profile(step, state, data, wall * 1e3, trace_dir, tables)
+    out["peak_gib"] = peak
+    return out
 
 
 def main() -> int:
@@ -311,6 +348,9 @@ def main() -> int:
                              "compute_dtype=bfloat16)")
     parser.add_argument("--profile-only", action="store_true",
                         help="skip the card-against-CPU comparison")
+    parser.add_argument("--no-deferred", action="store_true",
+                        help="Tacotron-2: profile the step with every weight "
+                             "gradient from autograd (deferred_dw=False)")
     parser.add_argument("--trace-dir", default=os.path.join("build", "profile"),
                         help="where the profiled step's Chrome trace goes")
     args = parser.parse_args()
@@ -330,7 +370,8 @@ def main() -> int:
             return 0
         if not args.profile_only:
             gradient_errors(load_items({"ljspeech": corpus}))
-        profile_step(corpus, args.hparams, args.trace_dir)
+        profile_step(corpus, args.hparams, args.trace_dir,
+                     deferred_dw=not args.no_deferred)
     return 0
 
 

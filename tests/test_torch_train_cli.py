@@ -9,12 +9,15 @@ nspeech_tpu_torch.cli.train_wavenet`` trains, resumes and writes a
 checkpoint that ``cli.generate_wavenet --device cpu`` serves, with the
 ``config.json`` that the JAX package's ``train_wavenet.py`` writes for the
 same corpus (the config after the start-up mutations and the speaker
-map); ``--gta-dir`` without local conditioning exits.
+map); ``--gta-dir`` without local conditioning exits. ``--git`` stamps the run
+with the hash that the JAX package's helper reads, and refuses a dirty
+tree as it does.
 """
 
 import json
 import os
 import shutil
+import subprocess
 import sys
 from typing import NamedTuple
 
@@ -365,3 +368,41 @@ def test_gta_dir_needs_local_conditioning(corpus, tmp_path):
     with pytest.raises(SystemExit, match="lc_channels > 0"):
         train_wavenet(corpus, tmp_path, "--gta-dir", str(tmp_path),
                       hparams=TINY_WN.replace("lc_channels=80", "lc_channels=0"))
+
+
+def git(repo, *args):
+    return subprocess.run(["git", "-C", str(repo), "-c", "user.name=t",
+                           "-c", "user.email=t@t", *args], check=True,
+                          capture_output=True, text=True).stdout.strip()
+
+
+@pytest.mark.parametrize("dirty", [False, True])
+def test_git_stamp_matches_jax_helper(corpus, tmp_path, monkeypatch, dirty):
+    from nspeech_tpu.utils import get_git_commit as jax_git_commit
+    from nspeech_tpu_torch.utils import get_git_commit
+
+    repo = tmp_path / "repo"
+    repo.mkdir()
+    git(repo, "init", "-q")
+    (repo / "a.txt").write_text("one\n")
+    git(repo, "add", "a.txt")
+    git(repo, "commit", "-q", "-m", "first")
+    if dirty:
+        (repo / "a.txt").write_text("two\n")
+    monkeypatch.chdir(repo)
+    log_dir = tmp_path / "logs"
+    if dirty:
+        with pytest.raises(RuntimeError) as want:
+            jax_git_commit()
+        with pytest.raises(RuntimeError) as got:
+            get_git_commit()
+        assert str(got.value) == str(want.value)
+        with pytest.raises(RuntimeError, match="uncommitted changes"):
+            train(corpus, log_dir, "--git", "--max-steps", "1")
+        assert not os.path.exists(log_dir / "taco2" / "ckpt")
+        return
+    head = git(repo, "rev-parse", "--short=10", "HEAD")
+    assert get_git_commit() == jax_git_commit() == head
+    train(corpus, log_dir, "--git", "--max-steps", "1")
+    with open(log_dir / "taco2" / "train.log") as f:
+        assert f"git commit: {head}" in f.read()
