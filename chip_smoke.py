@@ -135,7 +135,7 @@
     of the float32 run's first step on the same batch; then peak memory
     (each dtype alone) and warm sec/step (steps in turns float32, bf16,
     bf16, float32) of both models.
-14. Imports reference (TensorFlow) checkpoints (``import_phase``, last):
+14. Imports reference (TensorFlow) checkpoints (``import_phase``):
     the reference-named tensors of a seeded Tacotron-2 at its published
     widths and of the vocoder at the recipe (``tests/make_reference_ckpt.py``;
     the mapping the importers take, as this machine has no TensorFlow)
@@ -144,10 +144,23 @@
     one ``cli.synthesize`` request from the two imported checkpoints (one
     one-shot launch) and the imported Tacotron-2's served mel within
     MEL_TOL of the same checkpoint's forward on the CPU.
-15. Prints each form's time per sample (per step for the primed form)
+15. Serves exported artifacts (``export_phase``, after phase 14): the
+    full-width Tacotron-2 (MAX_ITERS steps) exported on the card through
+    ``serving/export.py`` (its decode one ``while_loop``), loaded and
+    served, its mel within MEL_TOL of the live ``Synthesizer``'s; the same
+    weights at EXPORT_CPU_ITERS steps exported on the CPU with platforms
+    cpu and cuda and loaded on the card (mel within MEL_TOL of the live
+    synthesizer's there); the full-width vocoder exported for
+    EXPORT_FRAMES frames at temperature 0 and 1, fed the artifact's mel,
+    each waveform equal to the live ``WaveNetVocoder``'s at the same seed
+    (the same codes; its sampler is ``nspeech::wavenet_sample``, one K1
+    launch per call, counted). Prints export and load times, sizes,
+    request latency beside the live path's and samples/s beside the live
+    vocoder's.
+16. Prints each form's time per sample (per step for the primed form)
     beside its bound, one ``{"kernels": [...]}`` line (one-shot, carried
     and primed records; ``launches`` summed over the paths of phases
-    5-11, 13 and 14, each counted from 0 just before it) and, last, the
+    5-11 and 13-15, each counted from 0 just before it) and, last, the
     ``{"ok": true, "device": ...}`` line. Exits non-zero without a card
     or when any check fails.
 """
@@ -176,6 +189,8 @@ N_PRIMED = 300          # samples kept after them
 CLI_SAMPLES = 4000      # samples per generation CLI run
 MAX_ITERS = 40          # decoder steps per request: 200 frames at r=5
 MEL_TOL = 1e-3          # windowed vs full-buffer postnet (float32 convs)
+EXPORT_FRAMES = 40      # frames of the exported vocoder program (10,000 samples)
+EXPORT_CPU_ITERS = 8    # decoder steps of the artifact traced on the CPU
 TACO_TOL = 1e-3         # Tacotron-1 mels, card vs CPU forward (float32, TF32 off)
 VOCODER_HPARAMS = "lc_channels=80,gc_channels=16,gc_category_cardinality=4"
 TRAIN_UTTS = 64         # synthetic corpus of the training phase, 1-10 s each
@@ -2346,6 +2361,121 @@ def import_phase(tmp: str):
     return ok, one
 
 
+def export_phase(tmp: str):
+    """Serving artifacts (``serving/export.py``) on the card: the
+    full-width Tacotron-2 (MAX_ITERS steps, text_len 64) exported on the
+    card, loaded and served, its mel held to the live ``Synthesizer``'s
+    (within MEL_TOL); the same weights at EXPORT_CPU_ITERS steps exported
+    on the CPU with ``platforms=("cpu", "cuda")`` and loaded on the card,
+    its mel held to the live ``Synthesizer``'s on the card at those steps
+    (within MEL_TOL); the full-width vocoder exported for
+    EXPORT_FRAMES frames at temperature 0 and 1, each fed the first
+    EXPORT_FRAMES frames of the artifact's mel, its waveform (so its
+    codes) equal to the live ``WaveNetVocoder``'s at the same seed. Prints
+    the export and load times, the artifacts' sizes, the request latency
+    beside the live path's and the vocoder's samples/s beside the live
+    one's. Returns (ok, one-shot launches of the vocoder artifacts)."""
+    import os
+
+    from nspeech_tpu_torch.config import load_config
+    from nspeech_tpu_torch.models.tacotron2 import Tacotron2
+    from nspeech_tpu_torch.ops.cuda import wavenet_gen
+    from nspeech_tpu_torch.serving import (ExportedSynthesizer, ExportedVocoder,
+                                           Synthesizer, WaveNetVocoder)
+    from nspeech_tpu_torch.serving.export import (MODULE_FILE, VOC_MODULE_FILE,
+                                                  export_synthesizer,
+                                                  export_vocoder)
+
+    card = card_line()
+    text = "An exported program speaks on the card."
+    cfg = load_config("taco2").parse(f"max_iters={MAX_ITERS}")
+    model = Tacotron2(cfg)
+    params, bn = model.init(11)
+    syn = Synthesizer(cfg, text_bucket=64).set_variables(params, bn, model=model)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def mb(path):
+        return os.path.getsize(path) / 1e6
+
+    ok = True
+    _, mel_live, _ = syn.synthesize(text)          # warm-up: cuDNN, cuFFT plans
+    art = os.path.join(tmp, "artifact")
+    _, export_s = timed(lambda: export_synthesizer(syn, art, text_len=64))
+    ex, load_s = timed(lambda: ExportedSynthesizer(art))
+    (wav, mel, _), first_s = timed(lambda: ex.synthesize(text))
+    gap = float(np.abs(mel - mel_live).max())
+    live_s = [timed(lambda: syn.synthesize(text))[1] for _ in range(3)]
+    art_s = [timed(lambda: ex.synthesize(text))[1] for _ in range(3)]
+    good = (gap <= MEL_TOL and wav.size > 0 and bool(np.isfinite(wav).all()))
+    ok &= good
+    print(f"export taco2 (while_loop decode, max_iters={MAX_ITERS}, text_len 64) "
+          f"on the card: export {export_s:.3f} s, {mb(os.path.join(art, MODULE_FILE)):.1f} MB, "
+          f"load {load_s:.3f} s, first request {first_s:.3f} s; request "
+          f"{np.median(art_s):.4f} s (live {np.median(live_s):.4f} s, median of 3); "
+          f"mel vs live max |diff| {gap:.3g} (tol {MEL_TOL}), wav {wav.size} "
+          f"samples -> {'ok' if good else 'FAIL'} [{card}]")
+    # the same weights traced on the CPU, at EXPORT_CPU_ITERS decoder steps
+    # (the trace's time grows with the steps the expand BiLSTM unrolls)
+    small = load_config("taco2").parse(f"max_iters={EXPORT_CPU_ITERS}")
+    small_model = Tacotron2(small)
+    cpu_syn = Synthesizer(small, text_bucket=64, device="cpu").set_variables(
+        params, bn, model=small_model)
+    cpu_art = os.path.join(tmp, "artifact_cpu")
+    _, cpu_export_s = timed(lambda: export_synthesizer(
+        cpu_syn, cpu_art, text_len=64, platforms=("cpu", "cuda")))
+    moved, cpu_load_s = timed(lambda: ExportedSynthesizer(cpu_art, device="cuda"))
+    _, mel_moved, _ = moved.synthesize(text)
+    card_syn = Synthesizer(small, text_bucket=64).set_variables(
+        params, bn, model=small_model)
+    gap = float(np.abs(mel_moved - card_syn.synthesize(text)[1]).max())
+    good = gap <= MEL_TOL
+    ok &= good
+    print(f"export taco2 (max_iters={EXPORT_CPU_ITERS}) on the CPU with "
+          f"platforms cpu,cuda: export {cpu_export_s:.3f} s, {mb(os.path.join(cpu_art, MODULE_FILE)):.1f} MB; "
+          f"loaded on the card in {cpu_load_s:.3f} s, mel vs the live "
+          f"Synthesizer on the card max |diff| {gap:.3g} (tol {MEL_TOL}) -> "
+          f"{'ok' if good else 'FAIL'}")
+    vcfg, net, vparams = vocoder(0)
+    voc = WaveNetVocoder(vcfg).set_variables(net, vparams)
+    feed = mel[:EXPORT_FRAMES]
+    n = EXPORT_FRAMES * voc._hop
+    voc.vocode(feed, temperature=0.0)          # warm-up: the sampler's build
+    live = {t: timed(lambda: voc.vocode(feed, temperature=t, seed=7))
+            for t in (0.0, 1.0)}
+    vocs = {}
+    for t in (0.0, 1.0):
+        out = os.path.join(tmp, f"vocoder_t{t:g}")
+        _, vexport_s = timed(lambda: export_vocoder(voc, out, EXPORT_FRAMES,
+                                                    temperature=t))
+        vocs[t], vload_s = timed(lambda: ExportedVocoder(out))
+        print(f"export vocoder (T={t:g}, {EXPORT_FRAMES} frames = {n} samples): "
+              f"export {vexport_s:.3f} s, {mb(os.path.join(out, VOC_MODULE_FILE)):.1f} MB, "
+              f"load {vload_s:.3f} s")
+    reset_launches()
+    got = {t: timed(lambda: vocs[t].vocode(feed, seed=7)) for t in (0.0, 1.0)}
+    launches = wavenet_gen.SAMPLER.launches
+    for t in (0.0, 1.0):
+        (ref, ref_s), (wav, wav_s) = live[t], got[t]
+        equal = wav.shape == ref.shape and bool(np.array_equal(wav, ref))
+        ok &= equal
+        print(f"vocoder artifact T={t:g}: {n / wav_s:.1f} samples/s (live "
+              f"{n / ref_s:.1f}), waveform equal to the live vocoder's (same "
+              f"codes) {equal} -> {'ok' if equal else 'FAIL'} [{card}]")
+    if launches != 2:
+        print(f"FAIL: the vocoder artifacts launched the sampler {launches} "
+              f"times for 2 calls")
+        ok = False
+    print(f"export phase sampler launches: one-shot {launches} (the vocoder "
+          f"artifacts)")
+    return ok, launches
+
+
 def loader_phase(tmp: str) -> bool:
     """The C++ audio loader built with this machine's g++: a seeded 5 s
     WAV at 22,050 Hz (resampled to 20,000 Hz) and a 5 s FLAC at 20,000 Hz
@@ -2431,6 +2561,8 @@ def main() -> int:
         carried["launches"] += more
         import_ok, one = import_phase(tmp)
         record["launches"] += one
+        export_ok, one = export_phase(tmp)
+        record["launches"] += one
     print(f"smoke took {time.perf_counter() - start:.1f} s after the card line")
     for rec in (record, carried, primed):
         for form, ms, bound in rec.pop("per_sample"):
@@ -2439,7 +2571,8 @@ def main() -> int:
     print(json.dumps({"kernels": [record, carried, primed]}))
     if not (record["checked"] and carried["checked"] and primed["checked"]
             and e2e_ok and stream_ok and taco1_ok and server_ok and cli_ok
-            and train_ok and wn_ok and bf16_ok and loader_ok and import_ok):
+            and train_ok and wn_ok and bf16_ok and loader_ok and import_ok
+            and export_ok):
         print("FAIL", file=sys.stderr)
         return 1
     print(json.dumps({"ok": True, "device": {

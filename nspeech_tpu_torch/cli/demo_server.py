@@ -2,6 +2,8 @@
 
     python -m nspeech_tpu_torch.cli.demo_server --checkpoint CKPT_DIR \
         [--vocoder-checkpoint VOC_DIR] [--dynamic-batch N] [--warmup]
+    python -m nspeech_tpu_torch.cli.demo_server --artifact ARTIFACT_DIR \
+        [--dynamic-batch N]
 
 Port of the JAX package's ``demo_server.py`` on stdlib WSGI, with its
 routes, status codes and bodies:
@@ -18,7 +20,10 @@ Missing text, a non-integer ``speaker_id`` or a ``ClientError`` give 400.
 With ``--dynamic-batch N``, concurrent ``/synthesize`` requests share one
 padded forward and one sampler launch (``DynamicBatcher``) and
 concurrent streams one carried launch per chunk (``StreamBatcher``). The
-server runs on the card unless ``--device cpu``.
+server runs on the card unless ``--device cpu``. With ``--artifact`` it
+serves ``/synthesize`` and ``/synthesize_batch`` from an exported
+text -> waveform program (``serving/export.py``, Griffin-Lim); a text
+beyond the artifact's ``text_len`` gets a 400.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ import json
 import time
 import zipfile
 from socketserver import ThreadingMixIn
+from types import SimpleNamespace
 from urllib.parse import parse_qs
 from wsgiref import simple_server
 
@@ -37,8 +43,8 @@ from nspeech_tpu_torch.config import debug_string
 from nspeech_tpu_torch.dsp.wavio import (encode_pcm16, encode_wav_bytes,
                                          wav_stream_header)
 from nspeech_tpu_torch.serving import (ClientError, DynamicBatcher,
-                                       StreamBatcher, StreamingTTS,
-                                       Synthesizer, TextToSpeech,
+                                       ExportedSynthesizer, StreamBatcher,
+                                       StreamingTTS, Synthesizer, TextToSpeech,
                                        WaveNetVocoder)
 
 HTML_BODY = b"""<!doctype html>
@@ -347,8 +353,8 @@ def main(argv=None) -> None:
     parser.add_argument("--checkpoint", default=None,
                         help="Checkpoint directory (config.json + serving/)")
     parser.add_argument("--artifact", default=None,
-                        help="Exported serving artifact (not ported yet: "
-                        "ROADMAP.md section 1, item 6)")
+                        help="Serve an exported artifact directory "
+                        "(cli.export_serving) instead of a checkpoint")
     parser.add_argument("--checkpoint-step", type=int, default=None)
     parser.add_argument("--port", type=int, default=9000)
     parser.add_argument("--model", default=None,
@@ -378,14 +384,21 @@ def main(argv=None) -> None:
     parser.add_argument("--device", default="cuda",
                         help="cuda (the sampler kernel) or cpu (plain)")
     args = parser.parse_args(argv)
-    if args.artifact:
-        raise SystemExit("--artifact needs exported serving artifacts, not "
-                         "ported yet (ROADMAP.md section 1, item 6)")
     if args.data_parallel:
         raise SystemExit("--data-parallel needs multi-GPU serving, not "
                          "ported yet (ROADMAP.md section 1, item 5)")
-    if not args.checkpoint:
-        parser.error("--checkpoint is required")
+    if bool(args.checkpoint) == bool(args.artifact):
+        parser.error("exactly one of --checkpoint / --artifact is required")
+    if args.artifact:
+        if args.vocoder_checkpoint:
+            raise SystemExit("--artifact serves the exported Griffin-Lim "
+                             "program; --vocoder-checkpoint needs --checkpoint")
+        synthesizer = ExportedSynthesizer(args.artifact, device=args.device)
+        cfg = SimpleNamespace(sample_rate=synthesizer.meta["sample_rate"])
+        app = make_app(_maybe_batch(synthesizer, args), cfg)
+        print("Serving artifact %s on port %d" % (args.artifact, args.port))
+        serve_forever(app, args.port)
+        return
     overrides = args.hparams
     if args.num_speakers is not None:
         overrides = (overrides + "," if overrides else "") \

@@ -22,6 +22,7 @@ from __future__ import annotations
 from typing import Callable, Optional, Tuple
 
 import torch
+import torch.utils._pytree as pytree
 
 from nspeech_tpu_torch.utils.tree import tree_leaves
 
@@ -173,6 +174,55 @@ def scan_autoregressive(
         aligns[t:t + k] = a
         t += k
     return outs, aligns, carry[4]
+
+
+def while_autoregressive(
+    step: Callable,
+    carry0,
+    batch: int,
+    num_mels: int,
+    r: int,
+    max_iters: int,
+    stop_threshold: float = 0.0,
+    initial_finished: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`scan_autoregressive` as one ``while_loop`` (the counterpart
+    of the JAX package's ``lax.while_loop`` decode), which ``torch.export``
+    traces: the step counter is a tensor, each step writes its output and
+    alignment into row t of preallocated [max_iters, N, ...] buffers with
+    ``index_copy``, and the loop exits once every row has stopped, so the
+    host never asks. Returns what :func:`scan_autoregressive` returns, bit
+    for bit (the rows never run stay zeros)."""
+    from torch._higher_order_ops import while_loop
+
+    (out, align), (_, cell, x, finished, steps) = start_autoregressive(
+        step, carry0, batch, num_mels, max_iters, stop_threshold,
+        initial_finished)
+    outs = torch.cat([out[None], out.new_zeros((max_iters - 1,) + tuple(out.shape))])
+    aligns = torch.cat([align[None],
+                        align.new_zeros((max_iters - 1,) + tuple(align.shape))])
+    cell_leaves, spec = pytree.tree_flatten(cell)
+    t = torch.ones((), dtype=torch.int64, device=out.device)
+    # the loop's carry keeps its layout from step to step: contiguous
+    x = x.contiguous()
+
+    def cond(t, x, finished, steps, outs, aligns, *cell):
+        return (t < max_iters) & ~finished.all()
+
+    def body(t, x, finished, steps, outs, aligns, *cell):
+        cell, (out, align) = step(pytree.tree_unflatten(list(cell), spec), x)
+        out = torch.where(finished[:, None], torch.zeros_like(out), out)
+        now = _stopped(out, stop_threshold)
+        steps = torch.where(~finished & now, t + 1, steps).to(torch.int32)
+        row = t.reshape(1)
+        return (t + 1, out[:, -num_mels:].contiguous(), finished | now, steps,
+                outs.index_copy(0, row, out[None]),
+                aligns.index_copy(0, row, align[None]),
+                *pytree.tree_leaves(cell))
+
+    _, _, _, steps, outs, aligns, *_ = while_loop(
+        cond, body, (t, x, finished, steps, outs, aligns, *cell_leaves))
+    return outs, aligns, steps
 
 
 def assemble_outputs(outs: torch.Tensor, num_mels: int) -> torch.Tensor:

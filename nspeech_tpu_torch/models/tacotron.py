@@ -234,15 +234,19 @@ class Tacotron1:
     @torch.no_grad()
     def forward(self, params, state, text_inputs: torch.Tensor,
                 input_lengths: torch.Tensor,
-                speaker_ids: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+                speaker_ids: Optional[torch.Tensor] = None,
+                decode=None) -> Dict[str, torch.Tensor]:
         """Inference forward: text ids [N, T_in] -> mel_outputs [N, T, M],
         linear_outputs [N, T, F], alignments [N, T_in, S], decoder_steps [N].
-        Rows of length 0 are padding: finished from the start."""
+        Rows of length 0 are padding: finished from the start. ``decode``
+        is the decoder's loop: the chunked :func:`decoder.scan_autoregressive`
+        of the live path (the default), or :func:`decoder.while_autoregressive`,
+        which ``torch.export`` traces (``serving/export.py``)."""
         cfg = self.cfg
         params = self._cast(params)
         ctx, carry0 = self.attention_context(params, state, text_inputs,
                                              input_lengths, speaker_ids)
-        outs, aligns, steps = D.scan_autoregressive(
+        outs, aligns, steps = (decode or D.scan_autoregressive)(
             self.make_eval_step(params, ctx), carry0, text_inputs.shape[0],
             cfg.num_mels, cfg.outputs_per_step, cfg.max_iters,
             stop_threshold=cfg.get("stop_threshold", 0.0),

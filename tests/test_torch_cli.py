@@ -22,7 +22,8 @@ generation CLIs, held to the JAX CLI's int16 samples. An exported
 Tacotron-1 run through both synthesize CLIs; ``--long`` on Griffin-Lim
 against ``synthesize.py --long``; ``cli.eval`` against ``eval.py`` (file
 names and wav lengths; the port's PNGs decoded with ``zlib``); and the
-refusals of what is not ported (multi-GPU, exported artifacts)."""
+refusals (multi-GPU, which is not ported; a vocoder beside an exported
+artifact)."""
 
 import importlib.util
 import os
@@ -193,7 +194,7 @@ def test_synthesize_cli_refusals(tts_ckpts, flag, item):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--artifact", "exported"], "item 6"),
+    (["--artifact", "exported", "--vocoder-checkpoint", "v"], "needs --checkpoint"),
     (["--checkpoint", "unused", "--data-parallel"], "item 5")])
 def test_demo_server_refusals(argv, item):
     from nspeech_tpu_torch.cli import demo_server

@@ -441,3 +441,24 @@ def test_wavenet_train_step_on_card_matches_cpu(cuda, tmp_path):
                                cfg).batches())
     good, line = wavenet_agreement(wavenet_card_vs_cpu(batch))
     assert good, line
+
+
+@pytest.mark.gpu
+def test_registered_operator_launches_the_kernel(cuda):
+    """``nspeech::wavenet_sample`` (the sampler of exported vocoder
+    programs) on CUDA tensors is one launch of the kernel, with the codes
+    of ``CudaWaveNetGenerator`` for the same weights, speakers and seed."""
+    from nspeech_tpu_torch.ops.cuda import wavenet_op
+
+    net = WaveNet(load_config("wavenet").parse(TINY_WN))
+    params = tree_to(net.init(0), cuda)
+    args = wavenet_op.operator_args(net, params, [0, 2])
+    lc = torch.rand(2, 200, 5, generator=torch.Generator().manual_seed(0)).to(cuda)
+    before = wavenet_gen.SAMPLER.launches
+    codes = torch.ops.nspeech.wavenet_sample(
+        args["packed"], args["weights"], lc, torch.tensor(3, device=cuda), 1.0,
+        args["net_config"], args["weights_spec"], args["gc_ids"])
+    assert wavenet_gen.SAMPLER.launches == before + 1
+    ref = CudaWaveNetGenerator(net, params, gc_ids=[0, 2])(200, seed=3, batch=2,
+                                                          lc=lc)
+    assert torch.equal(codes, ref)
