@@ -91,7 +91,7 @@
     float64 gradient against autograd's on the card (STEP_GRAD_TOL), times
     warm steps at batch 32 and T_out 900 in turns autograd, deferred,
     deferred, autograd (TURN_STEPS each, peak memory per turn) and
-    profiles one step of each (``scripts/torch_train_profile.py``:
+    profiles one step of each at T_out PROFILE_T_OUT (``scripts/torch_train_profile.py``:
     launches, kernel time, ``aten::add_``'s share and costliest input
     shapes), runs ``cli.synthesize`` from the trained checkpoint with the phase-5
     vocoder (one-shot launches), and trains Tacotron-1 at its published
@@ -145,10 +145,12 @@
     one-shot launch) and the imported Tacotron-2's served mel within
     MEL_TOL of the same checkpoint's forward on the CPU.
 15. Serves exported artifacts (``export_phase``, after phase 14): the
-    full-width Tacotron-2 (MAX_ITERS steps) exported on the card through
+    full-width Tacotron-2 (EXPORT_ITERS steps, EXPORT_GL_ITERS Griffin-Lim
+    iterations) exported on the card through
     ``serving/export.py`` (its decode one ``while_loop``), loaded and
     served, its mel within MEL_TOL of the live ``Synthesizer``'s; the same
-    weights at EXPORT_CPU_ITERS steps exported on the CPU with platforms
+    program at EXPORT_CPU_TEXT symbols exported
+    on the CPU with platforms
     cpu and cuda and loaded on the card (mel within MEL_TOL of the live
     synthesizer's there); the full-width vocoder exported for
     EXPORT_FRAMES frames at temperature 0 and 1, fed the artifact's mel,
@@ -157,10 +159,24 @@
     launch per call, counted). Prints export and load times, sizes,
     request latency beside the live path's and samples/s beside the live
     vocoder's.
-16. Prints each form's time per sample (per step for the primed form)
+16. Runs data parallelism on the one card (``parallel_phase``, after
+    phase 15, on phase 10's corpus and checkpoint and phase 5's vocoder):
+    an NCCL process group of world size 1 in this process; the
+    full-width Tacotron-2 data-parallel step at batch 32 and the WaveNet
+    step at WN_HPARAMS held to the plain steps (float64 gradients within
+    STEP_GRAD_TOL / WN_GRAD_TOL of each leaf's largest entry, float32
+    losses within STEP_LOSS_TOL / WN_LOSS_TOL) and timed beside them in
+    turns; the time-sharded WaveNet logits equal to the unsharded ones;
+    ``torchrun --nproc_per_node 1 -m nspeech_tpu_torch.cli.train`` for 2
+    steps, its first loss within STEP_LOSS_TOL of phase 10's float32
+    CLI's; ``cli.synthesize --data-parallel`` with the vocoder, its WAV
+    equal to the CLI's without the flag (its K1 launches counted). No
+    check falls back to the CPU.
+17. Prints each phase's seconds as it ends (``phase <name>: <s> s``),
+    each form's time per sample (per step for the primed form)
     beside its bound, one ``{"kernels": [...]}`` line (one-shot, carried
     and primed records; ``launches`` summed over the paths of phases
-    5-11 and 13-15, each counted from 0 just before it) and, last, the
+    5-11 and 13-16, each counted from 0 just before it) and, last, the
     ``{"ok": true, "device": ...}`` line. Exits non-zero without a card
     or when any check fails.
 """
@@ -190,7 +206,9 @@ CLI_SAMPLES = 4000      # samples per generation CLI run
 MAX_ITERS = 40          # decoder steps per request: 200 frames at r=5
 MEL_TOL = 1e-3          # windowed vs full-buffer postnet (float32 convs)
 EXPORT_FRAMES = 40      # frames of the exported vocoder program (10,000 samples)
-EXPORT_CPU_ITERS = 8    # decoder steps of the artifact traced on the CPU
+EXPORT_ITERS = 8        # decoder steps of the exported Tacotron-2 programs
+EXPORT_CPU_TEXT = 16    # text length of the one traced on the CPU (the card's: 64)
+EXPORT_GL_ITERS = 4     # Griffin-Lim iterations in export_phase (the checks hold mels)
 TACO_TOL = 1e-3         # Tacotron-1 mels, card vs CPU forward (float32, TF32 off)
 VOCODER_HPARAMS = "lc_channels=80,gc_channels=16,gc_category_cardinality=4"
 TRAIN_UTTS = 64         # synthetic corpus of the training phase, 1-10 s each
@@ -198,6 +216,7 @@ TEXT_RATE = 15          # its characters of text per second of audio
 TRAIN_STEPS = 4         # first training run; the resumed run adds one
 WARM_STEPS = 3          # timed steps per padded length after a warm-up step
 TURN_STEPS = 2          # timed steps per turn of the deferred-gradient timing
+PROFILE_T_OUT = 500     # padded length of the profiled steps (the turns: the longest, 900)
 STEP_LOSS_TOL = 1e-4    # training loss, card vs CPU, relative
 STEP_GRAD_TOL = 1e-9    # float64 gradients, card vs CPU, of each leaf's largest entry
 STEP_NORM_TOL = 3e-3    # float32 gradient, grad_norm, update, EMA: relative 2-norm
@@ -1303,22 +1322,23 @@ def write_corpus(out_dir: str, n: int = TRAIN_UTTS, sr: int = 20000,
     return out_dir
 
 
-def random_batch(seed: int):
-    """A feeder batch of 4 with random symbol ids and random targets in
-    [0, 1): 40/33/25/12 symbols, 100/80/64/31 frames of T_out 105, zero
-    past each row's frames."""
+def random_batch(seed: int, rows: int = 4):
+    """A feeder batch of ``rows`` with random symbol ids and random targets
+    in [0, 1): 40/33/25/12 symbols, 100/80/64/31 frames of T_out 105 (in
+    turns), zero past each row's frames."""
     from nspeech_tpu_torch.data.feeder import Batch
 
     rng = np.random.default_rng(seed)
-    lengths, frames = np.array([40, 33, 25, 12]), np.array([100, 80, 64, 31])
-    ids = rng.integers(2, 60, (4, 40))
+    lengths = np.resize([40, 33, 25, 12], rows)
+    frames = np.resize([100, 80, 64, 31], rows)
+    ids = rng.integers(2, 60, (rows, 40))
     ids[np.arange(40)[None] >= lengths[:, None]] = 0
-    mel = rng.random((4, 105, 80), dtype=np.float32)
-    lin = rng.random((4, 105, 1025), dtype=np.float32)
+    mel = rng.random((rows, 105, 80), dtype=np.float32)
+    lin = rng.random((rows, 105, 1025), dtype=np.float32)
     mel[np.arange(105)[None] >= frames[:, None]] = 0.0
     lin[np.arange(105)[None] >= frames[:, None]] = 0.0
-    return Batch(ids, lengths, np.zeros(4, np.int64), mel, lin,
-                 np.zeros((4, 0), np.float32))
+    return Batch(ids, lengths, np.zeros(rows, np.int64), mel, lin,
+                 np.zeros((rows, 0), np.float32))
 
 
 def leaf_gaps(ref, got) -> dict:
@@ -1468,7 +1488,8 @@ def deferred_timing(corpus: str, tmp: str, card: str) -> None:
     """Tacotron-2 at batch 32 on the corpus's longest padded batch (T_out
     900), weight gradients by autograd (A) and deferred (D): warm sec/step
     in turns A, D, D, A (TURN_STEPS timed steps after one untimed step
-    each) with each turn's peak memory; then one step of each under
+    each) with each turn's peak memory; then one step of each, on the
+    batch padded to PROFILE_T_OUT frames, under
     ``torch.profiler`` (``scripts/torch_train_profile.py --profile-only``'s
     ``profile_step``): launches, kernel time, busy share and
     ``aten::add_``'s share of the kernel time, with its costliest input
@@ -1517,15 +1538,19 @@ def deferred_timing(corpus: str, tmp: str, card: str) -> None:
     prof = repo_module("scripts/torch_train_profile.py")
     rows = []
     for d in (False, True):
-        r = prof.profile_step(corpus, "", os.path.join(tmp, "profile"),
-                              deferred_dw=d, tables=False, cache_dir=cache)
+        # the profiler's cost grows with the step's ~75,000 launches at
+        # T_out 900: the profiled steps run the T_out PROFILE_T_OUT batch,
+        # and write no Chrome trace (nothing here reads one)
+        r = prof.profile_step(corpus, "", None, deferred_dw=d, tables=False,
+                              cache_dir=cache, t_out=PROFILE_T_OUT)
         rows.append(f"{label[d]} {r['launches']} launches, kernels "
                     f"{r['busy_ms']:.1f} ms ({r['busy_ms'] / r['step_ms']:.1%} of "
                     f"the {r['step_ms']:.1f} ms step), aten::add_ {r['add_ms']:.1f} ms "
                     f"in {r['add_calls']} calls ({r['add_ms'] / max(r['busy_ms'], 1e-9):.1%} "
                     f"of the kernel time)")
     print("train taco2 profiled step (scripts/torch_train_profile.py "
-          "--profile-only, T_out 900): " + "; ".join(rows) + f" [{card}]")
+          f"--profile-only's profile_step, T_out {PROFILE_T_OUT}): "
+          + "; ".join(rows) + f" [{card}]")
 
 
 def train_phase(tmp: str):
@@ -1674,7 +1699,9 @@ def train_phase(tmp: str):
     # shortest utterances, published widths, no dropout
     scfg = load_config("taco2").parse("batch_size=4,batch_group_size=1")
     batch = next(DataFeeder(items[:4], scfg, cache_dir=cache).epoch_batches(0))
+    t0 = time.perf_counter()
     good, line = step_agreement(card_vs_cpu_step(batch))
+    line += f"; {time.perf_counter() - t0:.1f} s for the comparison"
     ok &= good
     print(f"train step cuda vs cpu (4 utterances, T_out {batch.mel_targets.shape[1]}, "
           f"weight gradients deferred): {line} -> {'ok' if good else 'FAIL'} [{card}]")
@@ -1684,7 +1711,10 @@ def train_phase(tmp: str):
     print(f"train step deferred vs autograd weight gradients on the card (4 "
           f"utterances, float64): worst leaf {gap:.2e} of its largest entry "
           f"(tol {STEP_GRAD_TOL}) -> {'ok' if good else 'FAIL'} [{card}]")
+    t0 = time.perf_counter()
     deferred_timing(corpus, tmp, card)
+    print(f"train deferred_timing: {time.perf_counter() - t0:.1f} s (turns and "
+          f"both profiled steps)")
 
     reset_launches()
     out_wav = os.path.join(tmp, "trained.wav")
@@ -2363,12 +2393,12 @@ def import_phase(tmp: str):
 
 def export_phase(tmp: str):
     """Serving artifacts (``serving/export.py``) on the card: the
-    full-width Tacotron-2 (MAX_ITERS steps, text_len 64) exported on the
-    card, loaded and served, its mel held to the live ``Synthesizer``'s
-    (within MEL_TOL); the same weights at EXPORT_CPU_ITERS steps exported
-    on the CPU with ``platforms=("cpu", "cuda")`` and loaded on the card,
-    its mel held to the live ``Synthesizer``'s on the card at those steps
-    (within MEL_TOL); the full-width vocoder exported for
+    full-width Tacotron-2 (EXPORT_ITERS steps, EXPORT_GL_ITERS Griffin-Lim
+    iterations, text_len 64) exported on the card, loaded and served, its
+    mel held to the live ``Synthesizer``'s (within MEL_TOL); the same
+    program at text_len EXPORT_CPU_TEXT exported on the CPU with
+    ``platforms=("cpu", "cuda")`` and loaded on the card, its mel held to
+    the live ``Synthesizer``'s on the card (within MEL_TOL); the full-width vocoder exported for
     EXPORT_FRAMES frames at temperature 0 and 1, each fed the first
     EXPORT_FRAMES frames of the artifact's mel, its waveform (so its
     codes) equal to the live ``WaveNetVocoder``'s at the same seed. Prints
@@ -2388,7 +2418,11 @@ def export_phase(tmp: str):
 
     card = card_line()
     text = "An exported program speaks on the card."
-    cfg = load_config("taco2").parse(f"max_iters={MAX_ITERS}")
+    # the trace unrolls each decoder step's expand frames and each
+    # Griffin-Lim iteration: the exported programs, and the live
+    # synthesizers they are held to, run EXPORT_ITERS and EXPORT_GL_ITERS
+    cfg = load_config("taco2").parse(
+        f"max_iters={EXPORT_ITERS},griffin_lim_iters={EXPORT_GL_ITERS}")
     model = Tacotron2(cfg)
     params, bn = model.init(11)
     syn = Synthesizer(cfg, text_bucket=64).set_variables(params, bn, model=model)
@@ -2414,29 +2448,29 @@ def export_phase(tmp: str):
     art_s = [timed(lambda: ex.synthesize(text))[1] for _ in range(3)]
     good = (gap <= MEL_TOL and wav.size > 0 and bool(np.isfinite(wav).all()))
     ok &= good
-    print(f"export taco2 (while_loop decode, max_iters={MAX_ITERS}, text_len 64) "
-          f"on the card: export {export_s:.3f} s, {mb(os.path.join(art, MODULE_FILE)):.1f} MB, "
+    print(f"export taco2 (while_loop decode, max_iters={EXPORT_ITERS}, text_len 64, "
+          f"{EXPORT_GL_ITERS} Griffin-Lim iterations) on the card: export {export_s:.3f} s, {mb(os.path.join(art, MODULE_FILE)):.1f} MB, "
           f"load {load_s:.3f} s, first request {first_s:.3f} s; request "
           f"{np.median(art_s):.4f} s (live {np.median(live_s):.4f} s, median of 3); "
           f"mel vs live max |diff| {gap:.3g} (tol {MEL_TOL}), wav {wav.size} "
           f"samples -> {'ok' if good else 'FAIL'} [{card}]")
-    # the same weights traced on the CPU, at EXPORT_CPU_ITERS decoder steps
-    # (the trace's time grows with the steps the expand BiLSTM unrolls)
-    small = load_config("taco2").parse(f"max_iters={EXPORT_CPU_ITERS}")
-    small_model = Tacotron2(small)
-    cpu_syn = Synthesizer(small, text_bucket=64, device="cpu").set_variables(
-        params, bn, model=small_model)
+    # the same weights traced on the CPU, at EXPORT_CPU_TEXT symbols (the
+    # trace's time grows with the steps the encoder's BiLSTM unrolls)
+    short = "Traced here."
+    cpu_syn = Synthesizer(cfg, text_bucket=EXPORT_CPU_TEXT,
+                          device="cpu").set_variables(params, bn, model=model)
     cpu_art = os.path.join(tmp, "artifact_cpu")
     _, cpu_export_s = timed(lambda: export_synthesizer(
-        cpu_syn, cpu_art, text_len=64, platforms=("cpu", "cuda")))
+        cpu_syn, cpu_art, text_len=EXPORT_CPU_TEXT, platforms=("cpu", "cuda")))
     moved, cpu_load_s = timed(lambda: ExportedSynthesizer(cpu_art, device="cuda"))
-    _, mel_moved, _ = moved.synthesize(text)
-    card_syn = Synthesizer(small, text_bucket=64).set_variables(
-        params, bn, model=small_model)
-    gap = float(np.abs(mel_moved - card_syn.synthesize(text)[1]).max())
+    _, mel_moved, _ = moved.synthesize(short)
+    card_syn = Synthesizer(cfg, text_bucket=EXPORT_CPU_TEXT).set_variables(
+        params, bn, model=model)
+    gap = float(np.abs(mel_moved - card_syn.synthesize(short)[1]).max())
     good = gap <= MEL_TOL
     ok &= good
-    print(f"export taco2 (max_iters={EXPORT_CPU_ITERS}) on the CPU with "
+    print(f"export taco2 (max_iters={EXPORT_ITERS}, text_len "
+          f"{EXPORT_CPU_TEXT}, {EXPORT_GL_ITERS} Griffin-Lim iterations) on the CPU with "
           f"platforms cpu,cuda: export {cpu_export_s:.3f} s, {mb(os.path.join(cpu_art, MODULE_FILE)):.1f} MB; "
           f"loaded on the card in {cpu_load_s:.3f} s, mel vs the live "
           f"Synthesizer on the card max |diff| {gap:.3g} (tol {MEL_TOL}) -> "
@@ -2474,6 +2508,245 @@ def export_phase(tmp: str):
     print(f"export phase sampler launches: one-shot {launches} (the vocoder "
           f"artifacts)")
     return ok, launches
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def turns(fns: dict, steps: int) -> dict:
+    """Warm seconds per call of each of ``fns`` (name -> fn), timed in turns
+    A, B, B, A (``steps`` calls per turn after one untimed call each)."""
+    for fn in fns.values():
+        fn()
+    out = {name: [] for name in fns}
+    names = list(fns)
+    for name in names + names[::-1]:
+        for _ in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fns[name]()
+            torch.cuda.synchronize()
+            out[name].append(time.perf_counter() - t0)
+    return out
+
+
+def parallel_phase(tmp: str):
+    """Data parallelism on one card (world size 1), after ``train_phase``
+    and ``cli_phase``: (a) an NCCL process group of world size 1 in this
+    process, one full-width Tacotron-2 data-parallel step (batch 32 of
+    ``random_batch``, dropout from a generator) and one WaveNet step at
+    WN_HPARAMS held to the plain steps on the same batches (float64
+    gradients within STEP_GRAD_TOL / WN_GRAD_TOL of each leaf's largest
+    entry, float32 losses within STEP_LOSS_TOL / WN_LOSS_TOL), and both
+    steps timed against the plain ones in turns (the cost of the
+    all-reduces when nothing is shared); (b) ``torchrun --nproc_per_node
+    1 -m nspeech_tpu_torch.cli.train`` for 2 steps on ``train_phase``'s
+    corpus, its first loss within STEP_LOSS_TOL of the float32 CLI's;
+    (c) ``cli.synthesize --data-parallel`` with the vocoder checkpoint,
+    its WAV equal sample for sample to the one without the flag (K1
+    launches counted); (d) the time-sharded WaveNet logits at world size 1
+    equal to the unsharded logits on the zero-padded window. Returns (ok,
+    one-shot launches of (c))."""
+    import contextlib
+    import io
+    import os
+    import re
+    import statistics
+
+    from scipy.io import wavfile
+
+    from nspeech_tpu_torch.cli import synthesize
+    from nspeech_tpu_torch.config import load_config
+    from nspeech_tpu_torch.models.tacotron2 import Tacotron2
+    from nspeech_tpu_torch.models.wavenet import WaveNet
+    from nspeech_tpu_torch.ops.cuda import wavenet_gen
+    from nspeech_tpu_torch.ops.upsample import batch_lc
+    from nspeech_tpu_torch.parallel.mesh import init_distributed
+    from nspeech_tpu_torch.parallel.timeshard import make_time_sharded_logits
+    from nspeech_tpu_torch.train.loop import (WaveNetDeviceBatch, batch_to_device,
+                                              build_tacotron_train_step,
+                                              build_wavenet_train_step,
+                                              create_state, step_generator,
+                                              tacotron_grads,
+                                              wavenet_batch_to_device,
+                                              wavenet_grads)
+    from nspeech_tpu_torch.train.optim import make_optimizer
+    from nspeech_tpu_torch.utils.tree import named_leaves, tree_map
+
+    card = card_line()
+    ok = True
+    dp = init_distributed("cuda", rank=0, world_size=1,
+                          init_method=f"tcp://127.0.0.1:{free_port()}")
+    backend = torch.distributed.get_backend()
+    ok &= backend == "nccl"
+
+    # (a) Tacotron-2 at the published widths, batch 32
+    cfg = load_config("taco2")
+    model = Tacotron2(cfg)
+    opt, sched = make_optimizer(cfg, "taco2")
+    state = create_state(model, opt, 0, device="cuda")
+    data = batch_to_device(random_batch(13, rows=32), "cuda")
+    loss32 = {}
+    for name, d in (("plain", None), ("dp", dp)):
+        step = build_tacotron_train_step(model, opt, sched, dp=d)
+        loss32[name] = float(step(state, data, step_generator("cuda", 0, 0))[1]["loss"])
+    loss_gap = rel_err(loss32["plain"], loss32["dp"])
+    torch.set_default_dtype(torch.float64)        # the decoder's zero carries too
+    try:
+        s64, d64 = to_float64(state, data)
+        g64 = {name: dict(named_leaves(tacotron_grads(
+            model, s64, d64, step_generator("cuda", 0, 0), dp=d)[0]))
+            for name, d in (("plain", None), ("dp", dp))}
+    finally:
+        torch.set_default_dtype(torch.float32)
+    del s64, d64
+    gap = grad_gap(g64["plain"], g64["dp"])
+    del g64
+    good = loss_gap <= STEP_LOSS_TOL and gap <= STEP_GRAD_TOL
+    ok &= good
+    steps = {name: build_tacotron_train_step(model, opt, sched, dp=d)
+             for name, d in (("plain", None), ("dp", dp))}
+    secs = turns({name: (lambda f=f: float(f(state, data, step_generator(
+        "cuda", 0, 0))[1]["loss"])) for name, f in steps.items()}, 2)
+    del steps
+    print(f"parallel taco2 data-parallel step ({backend}, world size 1, batch 32, "
+          f"T_out 105, dropout 0.5 from one generator): loss {loss32['dp']:.7f} vs "
+          f"plain {loss32['plain']:.7f} (rel {loss_gap:.2e}, tol {STEP_LOSS_TOL}); "
+          f"float64 gradients worst leaf {gap:.2e} of its largest entry (tol "
+          f"{STEP_GRAD_TOL}); warm sec/step in turns plain, dp, dp, plain: "
+          f"plain median {statistics.median(secs['plain']):.4f} "
+          f"({', '.join(f'{x:.4f}' for x in secs['plain'])}), dp median "
+          f"{statistics.median(secs['dp']):.4f} "
+          f"({', '.join(f'{x:.4f}' for x in secs['dp'])}) -> "
+          f"{'ok' if good else 'FAIL'} [{card}]")
+    del state, data
+
+    # (a) WaveNet at the recipe's widths
+    wcfg = wavenet_cfg(",gc_category_cardinality=1")
+    net = WaveNet(wcfg)
+    wopt, wsched = make_optimizer(wcfg, "wavenet")
+    wstate = create_state(net, wopt, 0, device="cuda")
+    rng = np.random.default_rng(17)
+    window = net.receptive_field + wcfg.sample_size
+    frames = (window + 250 - 2) // 250 + 2
+    from nspeech_tpu_torch.data.wavenet_feeder import WaveNetBatch
+
+    wdata = wavenet_batch_to_device(WaveNetBatch(
+        rng.uniform(-0.9, 0.9, (4, window)).astype(np.float32),
+        np.zeros(4, np.int32), rng.random((4, frames, 80), dtype=np.float32),
+        rng.integers(0, 250, 4).astype(np.int32)), "cuda")
+    wsteps = {name: build_wavenet_train_step(net, wopt, wcfg, wsched, True, True,
+                                             dp=d)
+              for name, d in (("plain", None), ("dp", dp))}
+    wloss = {name: float(f(wstate, wdata)[1]["loss"]) for name, f in wsteps.items()}
+    w64 = WaveNetDeviceBatch(wdata.audio.double(), wdata.speaker_ids,
+                             batch_lc(wdata, wcfg).double(), None)
+    p64 = tree_map(torch.Tensor.double, wstate.params)
+    wg = {name: dict(named_leaves(wavenet_grads(net, p64, w64, wcfg, True, True,
+                                                dp=d)[0]))
+          for name, d in (("plain", None), ("dp", dp))}
+    wgap = grad_gap(wg["plain"], wg["dp"])
+    wloss_gap = rel_err(wloss["plain"], wloss["dp"])
+    del wg, w64, p64
+    good = wloss_gap <= WN_LOSS_TOL and wgap <= WN_GRAD_TOL
+    ok &= good
+    wsecs = turns({name: (lambda f=f: float(f(wstate, wdata)[1]["loss"]))
+                   for name, f in wsteps.items()}, 3)
+    print(f"parallel wavenet data-parallel step (world size 1, batch 4 x "
+          f"{window} samples): loss {wloss['dp']:.7f} vs plain {wloss['plain']:.7f} "
+          f"(rel {wloss_gap:.2e}, tol {WN_LOSS_TOL}); float64 gradients worst leaf "
+          f"{wgap:.2e} (tol {WN_GRAD_TOL}); warm sec/step in turns: plain median "
+          f"{statistics.median(wsecs['plain']):.4f} "
+          f"({', '.join(f'{x:.4f}' for x in wsecs['plain'])}), dp median "
+          f"{statistics.median(wsecs['dp']):.4f} "
+          f"({', '.join(f'{x:.4f}' for x in wsecs['dp'])}) -> "
+          f"{'ok' if good else 'FAIL'} [{card}]")
+    del wsteps, wstate, wdata
+
+    # (d) the time-sharded logits at world size 1, full-width vocoder
+    vcfg, vnet, vparams = vocoder(5)
+    T = 20480
+    audio = torch.tensor(rng.uniform(-0.9, 0.9, (2, T)), dtype=torch.float32,
+                         device="cuda")
+    gc = torch.tensor([1, 3], device="cuda")
+    lc = seeded_lc(23, 2, T, 250)
+    rf = vnet.receptive_field
+    with torch.no_grad():
+        got, targets = make_time_sharded_logits(vnet, dp, True, True)(
+            vparams, audio, gc, lc)
+        ref, ref_t = vnet.forward_train(
+            vparams, torch.nn.functional.pad(audio, (rf, 0)), gc_ids=gc,
+            lc=torch.nn.functional.pad(lc, (0, 0, rf, 0)))
+    tgap = float((got - ref).abs().max())
+    good = tgap <= 1e-5 and torch.equal(targets, ref_t)
+    ok &= good
+    print(f"parallel time-sharded wavenet logits (world size 1, 2 x {T} samples, "
+          f"full width): max |diff| {tgap:.3g} against the unsharded logits on "
+          f"the zero-padded window (tol 1e-5), targets equal -> "
+          f"{'ok' if good else 'FAIL'} [{card}]")
+    torch.distributed.destroy_process_group()
+
+    # (b) the trainer under torchrun, on train_phase's corpus and cache
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", "1",
+         "--master_addr", "127.0.0.1", "--master_port", str(free_port()),
+         "-m", "nspeech_tpu_torch.cli.train", "--ljspeech",
+         os.path.join(tmp, "corpus"), "--cache-dir", os.path.join(tmp, "features"),
+         "--log-dir", os.path.join(tmp, "logs_dp"), "--model", "taco2",
+         "--max-steps", "2", "--checkpoint-interval", "1000", "--seed", "0"],
+        capture_output=True, text=True, env=env, cwd=root, timeout=300)
+    wall = time.perf_counter() - t0
+    losses = [float(x) for x in re.findall(r"loss=([-0-9.naninf]+),", proc.stdout)]
+    first = FIRST_LOSS.get("taco2", float("nan"))
+    good = (proc.returncode == 0 and len(losses) == 2
+            and "Data-parallel over 1 ranks (nccl backend)" in proc.stdout
+            and rel_err(first, losses[0]) <= STEP_LOSS_TOL and os.path.exists(
+                os.path.join(tmp, "logs_dp", "taco2", "ckpt", "train", "2.pt")))
+    ok &= good
+    if proc.returncode != 0:
+        print(proc.stdout[-3000:] + proc.stderr[-3000:])
+    print(f"parallel torchrun --nproc_per_node 1 cli.train taco2 (batch 32, 2 "
+          f"steps): losses {losses}, first against the float32 CLI's {first:.5f} "
+          f"(rel {rel_err(first, losses[0]) if losses else float('nan'):.2e}, tol "
+          f"{STEP_LOSS_TOL}), {wall:.1f} s wall -> {'ok' if good else 'FAIL'} [{card}]")
+
+    # (c) synthesize --data-parallel against the same CLI without the flag
+    argv = ["--checkpoint", os.path.join(tmp, "logs", "taco2", "ckpt"),
+            "--hparams", f"max_iters={MAX_ITERS}", "--vocoder-checkpoint",
+            os.path.join(tmp, "vocoder"), "--text", "Data parallel, one card.",
+            "--speaker", "1"]
+    wavs, walls = {}, {}
+    one = 0
+    for flag in (None, "--data-parallel"):
+        out = os.path.join(tmp, f"dp_{bool(flag)}.wav")
+        reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            synthesize.main(argv + ["--out", out] + ([flag] if flag else []))
+        torch.cuda.synchronize()
+        walls[flag] = time.perf_counter() - t0
+        if flag:
+            one = wavenet_gen.SAMPLER.launches
+        wavs[flag] = wavfile.read(out)[1]
+    equal = bool(np.array_equal(wavs["--data-parallel"], wavs[None]))
+    good = equal and one >= 1 and wavs[None].size > 0
+    ok &= good
+    print(f"parallel cli synthesize --data-parallel (a mesh of "
+          f"{torch.cuda.device_count()} card, the trained taco2 and the vocoder): "
+          f"{walls['--data-parallel']:.3f} s wall (without the flag "
+          f"{walls[None]:.3f} s), launches one-shot {one}, wav "
+          f"{wavs[None].size} samples equal to the one without the flag "
+          f"{equal} -> {'ok' if good else 'FAIL'} [{card}]")
+    return ok, one
 
 
 def loader_phase(tmp: str) -> bool:
@@ -2536,32 +2809,41 @@ def main() -> int:
     set_matmul_precision("highest")
     print(card_line())
     start = time.perf_counter()
-    record = kernel_phase()
-    carried = carried_phase()
-    primed = primed_phase()
-    e2e_ok, record["launches"] = e2e_phase()
-    stream_ok, carried["launches"] = streaming_phase()
-    taco1_ok, one, more = taco1_phase()
+
+    def phase(fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        print(f"phase {fn.__name__}: {time.perf_counter() - t0:.1f} s")
+        return out
+
+    record = phase(kernel_phase)
+    carried = phase(carried_phase)
+    primed = phase(primed_phase)
+    e2e_ok, record["launches"] = phase(e2e_phase)
+    stream_ok, carried["launches"] = phase(streaming_phase)
+    taco1_ok, one, more = phase(taco1_phase)
     record["launches"] += one
     carried["launches"] += more
-    server_ok, one, more = server_phase()
+    server_ok, one, more = phase(server_phase)
     record["launches"] += one
     carried["launches"] += more
     with tempfile.TemporaryDirectory() as tmp:
-        loader_ok = loader_phase(tmp)
-        cli_ok, (one, primed["launches"], more) = cli_phase(tmp)
+        loader_ok = phase(loader_phase, tmp)
+        cli_ok, (one, primed["launches"], more) = phase(cli_phase, tmp)
         record["launches"] += one
         carried["launches"] += more
-        train_ok, one = train_phase(tmp)
+        train_ok, one = phase(train_phase, tmp)
         record["launches"] += one
-        wn_ok, one = wavenet_train_phase(tmp)
+        wn_ok, one = phase(wavenet_train_phase, tmp)
         record["launches"] += one
-        bf16_ok, one, more = bf16_phase(tmp)
+        bf16_ok, one, more = phase(bf16_phase, tmp)
         record["launches"] += one
         carried["launches"] += more
-        import_ok, one = import_phase(tmp)
+        import_ok, one = phase(import_phase, tmp)
         record["launches"] += one
-        export_ok, one = export_phase(tmp)
+        export_ok, one = phase(export_phase, tmp)
+        record["launches"] += one
+        parallel_ok, one = phase(parallel_phase, tmp)
         record["launches"] += one
     print(f"smoke took {time.perf_counter() - start:.1f} s after the card line")
     for rec in (record, carried, primed):
@@ -2572,7 +2854,7 @@ def main() -> int:
     if not (record["checked"] and carried["checked"] and primed["checked"]
             and e2e_ok and stream_ok and taco1_ok and server_ok and cli_ok
             and train_ok and wn_ok and bf16_ok and loader_ok and import_ok
-            and export_ok):
+            and export_ok and parallel_ok):
         print("FAIL", file=sys.stderr)
         return 1
     print(json.dumps({"ok": True, "device": {

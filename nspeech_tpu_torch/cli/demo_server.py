@@ -23,7 +23,8 @@ concurrent streams one carried launch per chunk (``StreamBatcher``). The
 server runs on the card unless ``--device cpu``. With ``--artifact`` it
 serves ``/synthesize`` and ``/synthesize_batch`` from an exported
 text -> waveform program (``serving/export.py``, Griffin-Lim); a text
-beyond the artifact's ``text_len`` gets a 400.
+beyond the artifact's ``text_len`` gets a 400. ``--data-parallel`` shards
+each batched forward over every card (``Synthesizer(mesh=...)``).
 """
 
 from __future__ import annotations
@@ -42,6 +43,7 @@ from wsgiref import simple_server
 from nspeech_tpu_torch.config import debug_string
 from nspeech_tpu_torch.dsp.wavio import (encode_pcm16, encode_wav_bytes,
                                          wav_stream_header)
+from nspeech_tpu_torch.parallel.mesh import local_mesh
 from nspeech_tpu_torch.serving import (ClientError, DynamicBatcher,
                                        ExportedSynthesizer, StreamBatcher,
                                        StreamingTTS, Synthesizer, TextToSpeech,
@@ -379,14 +381,12 @@ def main(argv=None) -> None:
                         help="Build the sampler and run each serving surface "
                         "once at startup, so that first requests do not wait")
     parser.add_argument("--data-parallel", action="store_true",
-                        help="Shard batched synthesis over devices (not "
-                        "ported yet: ROADMAP.md section 1, item 5)")
+                        help="Shard batched synthesis over every card (a "
+                        "one-process device mesh); pairs well with "
+                        "--dynamic-batch")
     parser.add_argument("--device", default="cuda",
                         help="cuda (the sampler kernel) or cpu (plain)")
     args = parser.parse_args(argv)
-    if args.data_parallel:
-        raise SystemExit("--data-parallel needs multi-GPU serving, not "
-                         "ported yet (ROADMAP.md section 1, item 5)")
     if bool(args.checkpoint) == bool(args.artifact):
         parser.error("exactly one of --checkpoint / --artifact is required")
     if args.artifact:
@@ -403,9 +403,13 @@ def main(argv=None) -> None:
     if args.num_speakers is not None:
         overrides = (overrides + "," if overrides else "") \
             + "num_speakers=%d" % args.num_speakers
+    mesh = None
+    if args.data_parallel:
+        mesh = local_mesh(args.device)
+        print("Serving data-parallel over %d devices" % mesh.devices.size)
     synthesizer = Synthesizer.from_checkpoint(
         args.checkpoint, args.model, overrides, step=args.checkpoint_step,
-        device=args.device)
+        device=args.device, mesh=mesh)
     cfg = synthesizer.cfg
     print(debug_string(cfg))
     streamer = None

@@ -8,7 +8,10 @@ checkpoints (``train/checkpoint.py``): Tacotron-1 or -2 mels, then the
 mel-conditioned WaveNet vocoder (the CUDA sampler on ``--device cuda``,
 the default; the plain generator on ``cpu``), or Griffin-Lim without a
 vocoder checkpoint. ``--long`` splits a text of any length into pieces
-served as one batch (``serving/longform.py``).
+served as one batch (``serving/longform.py``). ``--data-parallel`` shards
+batched synthesis (the ``--long`` pieces) over every card, or over the
+one CPU device with ``--device cpu`` (``parallel/mesh.py``); the vocoder
+then runs on the first card, as the JAX CLI's does.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ from __future__ import annotations
 import argparse
 
 from nspeech_tpu_torch.dsp.wavio import save_wav
+from nspeech_tpu_torch.parallel.mesh import local_mesh
 from nspeech_tpu_torch.serving import Synthesizer, TextToSpeech, WaveNetVocoder
 from nspeech_tpu_torch.serving.errors import ClientError, check_ids
 from nspeech_tpu_torch.serving.longform import DEFAULT_MAX_CHARS, synthesize_long
@@ -47,14 +51,11 @@ def main(argv=None) -> None:
     parser.add_argument("--max-chars", type=int, default=DEFAULT_MAX_CHARS,
                         help="Max characters per long-form piece")
     parser.add_argument("--data-parallel", action="store_true",
-                        help="Shard batched synthesis over devices (not "
-                             "ported yet: ROADMAP.md section 1, item 5)")
+                        help="Shard batched synthesis (e.g. --long pieces) "
+                             "over every card (a one-process device mesh)")
     parser.add_argument("--device", default="cuda",
                         help="cuda (the sampler kernel) or cpu (plain)")
     args = parser.parse_args(argv)
-    if args.data_parallel:
-        raise SystemExit("--data-parallel needs multi-GPU serving, not "
-                         "ported yet (ROADMAP.md section 1, item 5)")
 
     # The run metadata next to the checkpoint supplies the training-time
     # hparams (incl. the mutated num_speakers); --hparams and
@@ -63,8 +64,9 @@ def main(argv=None) -> None:
     if args.num_speakers is not None:
         overrides = (overrides + "," if overrides else "") \
             + "num_speakers=%d" % args.num_speakers
-    synth = Synthesizer.from_checkpoint(args.checkpoint, args.model,
-                                        overrides, device=args.device)
+    synth = Synthesizer.from_checkpoint(
+        args.checkpoint, args.model, overrides, device=args.device,
+        mesh=local_mesh(args.device) if args.data_parallel else None)
     cfg = synth.cfg
     vocoder = None
     if args.vocoder_checkpoint:

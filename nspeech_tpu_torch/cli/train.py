@@ -17,9 +17,19 @@ under the bf16 compute policy (``ops/policy.py``: float32 masters, bf16
 forward) and ``--matmul-precision`` sets the card's float32 products.
 ``--git`` refuses a working tree with uncommitted changes and logs the
 short hash of HEAD.
-WaveNet trains with ``nspeech_tpu_torch.cli.train_wavenet``. Options of
-the JAX trainer whose modules the port does not have yet exit with the
-``ROADMAP.md`` item that holds them.
+WaveNet trains with ``nspeech_tpu_torch.cli.train_wavenet``.
+
+Data-parallel across cards: start one process per card with ``torchrun``::
+
+    torchrun --nproc_per_node 4 -m nspeech_tpu_torch.cli.train --ljspeech DIR ...
+
+Each rank trains on ``cuda:LOCAL_RANK`` (gloo on ``--device cpu``), its
+feeder reads the shard ``rank::W`` of the corpus and builds
+``batch_size / W`` rows, the ranks pad a step's batches to one shape (one
+MAX all-reduce), and the step is the data-parallel one of
+``train/loop.py``: the plain step's result on the global batch. Rank 0
+alone writes the run directory. A ``batch_size`` that does not divide by
+W exits.
 """
 
 from __future__ import annotations
@@ -33,10 +43,12 @@ import torch
 from nspeech_tpu_torch import config
 from nspeech_tpu_torch import dsp
 from nspeech_tpu_torch.data.device_cache import DeviceCachedBatches
-from nspeech_tpu_torch.data.feeder import DataFeeder
+from nspeech_tpu_torch.data.feeder import DataFeeder, pad_batch
 from nspeech_tpu_torch.dsp.wavio import save_wav
 from nspeech_tpu_torch.models import create_model
 from nspeech_tpu_torch.ops import policy
+from nspeech_tpu_torch.parallel.collectives import max_over_ranks
+from nspeech_tpu_torch.parallel.mesh import distributed_env
 from nspeech_tpu_torch.text import sequence_to_text, text_to_sequence
 from nspeech_tpu_torch.text.cmudict import CMUDict
 from nspeech_tpu_torch.train.checkpoint import CheckpointManager
@@ -46,7 +58,7 @@ from nspeech_tpu_torch.train.loop import (batch_to_device,
 from nspeech_tpu_torch.train.metadata import (config_from_checkpoint,
                                               save_run_metadata)
 from nspeech_tpu_torch.train.optim import make_optimizer
-from nspeech_tpu_torch.train.runner import run_training
+from nspeech_tpu_torch.train.runner import pick_mesh, run_training
 from nspeech_tpu_torch.utils import get_git_commit, infolog, plot, time_string
 from nspeech_tpu_torch.utils.infolog import log
 
@@ -76,28 +88,63 @@ def check_supported(args, cfg) -> torch.device:
 
 
 def training_device(args, cfg) -> torch.device:
-    """The device of both trainers; exits for what the port cannot train
-    yet (several processes), for a compute dtype that is not a float and
-    for a missing card."""
+    """The device of both trainers; exits for a compute dtype that is not a
+    float, for a missing card and for several cards without ``torchrun``
+    (which one?). Under ``torchrun`` a rank's card is
+    ``cuda:LOCAL_RANK``."""
     try:
         policy.compute_dtype(cfg)
     except ValueError as e:
         raise SystemExit(str(e))
-    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        raise SystemExit("WORLD_SIZE > 1: multi-process data-parallel "
-                         "training is not ported yet (ROADMAP.md section 1, "
-                         "item 5)")
     device = torch.device(args.device)
     if device.type == "cuda":
         if not torch.cuda.is_available():
             raise SystemExit("--device cuda: no CUDA device (pass --device cpu "
                              "to train on the host)")
+        if distributed_env():
+            return torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
         if device.index is None and torch.cuda.device_count() > 1:
             raise SystemExit(
                 f"--device cuda on a host with {torch.cuda.device_count()} "
-                "cards: the port trains on one (multi-GPU data parallelism "
-                "is ROADMAP.md section 1, item 5); pass --device cuda:N")
+                "cards: pass --device cuda:N to train on one, or start one "
+                "process per card with torchrun to train data-parallel")
     return device
+
+
+def start_run(args, cfg, device: torch.device, run_name: str):
+    """``(log_dir, dp)``: the data-parallel group (``train/runner.py``
+    ``pick_mesh``: None without ``torchrun``), the run directory, and the
+    log (``train.log`` on rank 0; the other ranks log nothing)."""
+    dp = pick_mesh(cfg.batch_size, device)
+    log_dir = os.path.join(args.log_dir, run_name)
+    lead = dp is None or dp.rank == 0
+    if lead:
+        os.makedirs(log_dir, exist_ok=True)
+    infolog.init(os.path.join(log_dir, "train.log") if lead else None,
+                 run_name, args.slack_url, quiet=not lead)
+    if dp is not None:
+        log("Data-parallel over %d ranks (%s backend): %d of the batch's %d "
+            "rows per rank" % (dp.world, torch.distributed.get_backend(),
+                               cfg.batch_size // dp.world, cfg.batch_size))
+    return log_dir, dp
+
+
+def rank_config(cfg, dp):
+    """The feeder's config on a rank: ``batch_size / W`` rows."""
+    if dp is None:
+        return cfg
+    return config.Config(dict(cfg.values(), batch_size=cfg.batch_size // dp.world))
+
+
+def common_shape(batches, dp):
+    """Feeder batches padded to the largest text and frame lengths of the
+    ranks' batches of each step (one MAX all-reduce per step)."""
+    try:
+        for b in batches:
+            yield pad_batch(b, *max_over_ranks(
+                [b.inputs.shape[1], b.mel_targets.shape[1]], dp))
+    finally:
+        batches.close()
 
 
 def add_matmul_precision(parser) -> None:
@@ -125,7 +172,7 @@ def set_precision(args, cfg, device: torch.device) -> None:
                 cfg.compute_dtype))
 
 
-def train(log_dir: str, args, cfg, device: torch.device) -> None:
+def train(log_dir: str, args, cfg, device: torch.device, dp=None) -> None:
     ckpt_dir = os.path.join(log_dir, "ckpt")
     log("Checkpoint dir: %s" % ckpt_dir)
     log("Using model: %s on %s" % (args.model, device))
@@ -133,29 +180,36 @@ def train(log_dir: str, args, cfg, device: torch.device) -> None:
     set_precision(args, cfg, device)
     if device.type == "cuda":
         # the feeder's thread featurizes on the host: leave a core to the
-        # thread that drives the card
-        torch.set_num_threads(max(1, (os.cpu_count() or 2) - 1))
+        # thread that drives the card (the cores shared by the ranks)
+        ranks = dp.world if dp is not None else 1
+        torch.set_num_threads(max(1, (os.cpu_count() or 2) // ranks - 1))
 
     cmudict = None
     if cfg.use_cmudict and args.cmudict_path:
         cmudict = CMUDict(args.cmudict_path, keep_ambiguous=False)
         log("Loaded CMUDict with %d unambiguous entries" % len(cmudict))
 
-    feeder = DataFeeder(prepare_input_paths(args), cfg, cache_dir=args.cache_dir,
-                        seed=args.seed, cmudict=cmudict, holdout=args.holdout)
+    lead = dp is None or dp.rank == 0
+    feeder = DataFeeder(prepare_input_paths(args), rank_config(cfg, dp),
+                        cache_dir=args.cache_dir, seed=args.seed,
+                        cmudict=cmudict, holdout=args.holdout,
+                        shard_index=dp.rank if dp else 0,
+                        shard_count=dp.world if dp else 1)
     cfg.num_speakers = feeder.num_speakers  # startup mutation contract
     log("Loaded %d examples / %d speakers%s" % (
         len(feeder._items), feeder.num_speakers,
         " (+%d held out)" % args.holdout if args.holdout else ""))
-    # the EFFECTIVE config (after the mutation) and the speaker map beside
-    # the checkpoints, so serving needs no flag hand-off
-    save_run_metadata(ckpt_dir, args.model, cfg, speaker_map=feeder.speaker2id)
+    if lead:
+        # the EFFECTIVE config (after the mutation) and the speaker map
+        # beside the checkpoints, so serving needs no flag hand-off
+        save_run_metadata(ckpt_dir, args.model, cfg,
+                          speaker_map=feeder.speaker2id)
 
     model = create_model(args.model, cfg)
     optimizer, schedule = make_optimizer(cfg, args.model)
     ema = float(cfg.ema_decay)
     step_fn = build_tacotron_train_step(model, optimizer, schedule=schedule,
-                                        ema_decay=ema)
+                                        ema_decay=ema, dp=dp)
     state = create_state(model, optimizer, args.seed, ema=bool(ema),
                          device=device)
     ckpt = CheckpointManager(ckpt_dir, args.model, cfg,
@@ -164,10 +218,12 @@ def train(log_dir: str, args, cfg, device: torch.device) -> None:
     if args.device_cache:
         cache = DeviceCachedBatches(feeder, device,
                                     n_epoch_variants=args.device_cache,
-                                    seed=args.seed)
+                                    seed=args.seed, dp=dp)
         log("Device-cached %d batches (%.0f MB on %s); per-step host "
             "transfer eliminated" % (cache.n_batches, cache.cached_mb, device))
         batches = cache.batches()
+    elif dp is not None:
+        batches = common_shape(feeder.batches(), dp)
     else:
         batches = feeder.batches()
     preview = [None]  # the first batch, for the artifacts
@@ -262,7 +318,7 @@ def train(log_dir: str, args, cfg, device: torch.device) -> None:
                 % (step, fr_rms, fr_steps))
 
     eval_fn = None
-    if args.holdout:
+    if args.holdout and lead:
         # teacher-forced loss on utterances training never sees
         eval_batch = batch_to_device(feeder.holdout_batch(), device)
 
@@ -289,6 +345,7 @@ def train(log_dir: str, args, cfg, device: torch.device) -> None:
             eval_fn=eval_fn,
             restore_step=args.restore_step,
             to_device=batch_to_device,
+            dp=dp,
         )
     finally:
         batches.close()   # stops the feeder's prefetch thread
@@ -342,7 +399,8 @@ def build_parser() -> argparse.ArgumentParser:
                         help="cmudict-0.7b file for ARPAbet substitution")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--device", default="cuda",
-                        help="cuda (one card) or cpu")
+                        help="cuda (one card; under torchrun the rank's "
+                             "card) or cpu")
     add_matmul_precision(parser)
     parser.add_argument("--git", action="store_true",
                         help="Verify the working tree is clean")
@@ -359,15 +417,16 @@ def main(argv=None) -> None:
         cfg = config.load_config(args.model)
         cfg.parse(args.hparams)
     device = check_supported(args, cfg)
-    run_name = args.name or args.model
-    log_dir = os.path.join(args.log_dir, run_name)
-    os.makedirs(log_dir, exist_ok=True)
-    infolog.init(os.path.join(log_dir, "train.log"), run_name, args.slack_url)
-    if args.hparams_from:
-        log("hparams base: run metadata from %s" % args.hparams_from)
-    if args.git:
-        get_git_commit()
-    train(log_dir, args, cfg, device)
+    log_dir, dp = start_run(args, cfg, device, args.name or args.model)
+    try:
+        if args.hparams_from:
+            log("hparams base: run metadata from %s" % args.hparams_from)
+        if args.git:
+            get_git_commit()
+        train(log_dir, args, cfg, device, dp)
+    finally:
+        if dp is not None:
+            torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -13,6 +13,9 @@ WaveNet train step of ``train/loop.py``, and checkpoints under
 ``cli.generate_wavenet`` and ``cli.synthesize --vocoder-checkpoint``
 read). The start-up mutations are the JAX trainer's: ``num_speakers`` and
 ``gc_category_cardinality`` from the feeder, an L2 strength of 0 as none.
+Under ``torchrun`` it trains data-parallel, as ``cli.train`` does: each
+rank reads its shard of the corpus and ``batch_size / W`` windows (one
+shape on every rank), and rank 0 writes the run directory.
 """
 
 from __future__ import annotations
@@ -24,7 +27,8 @@ import torch
 
 from nspeech_tpu_torch import config
 from nspeech_tpu_torch.cli.train import (add_matmul_precision,
-                                         prepare_input_paths, set_precision,
+                                         prepare_input_paths, rank_config,
+                                         set_precision, start_run,
                                          training_device)
 from nspeech_tpu_torch.data.wavenet_feeder import WaveNetFeeder
 from nspeech_tpu_torch.models import create_model
@@ -35,7 +39,6 @@ from nspeech_tpu_torch.train.metadata import (config_from_checkpoint,
                                               save_run_metadata)
 from nspeech_tpu_torch.train.optim import make_optimizer
 from nspeech_tpu_torch.train.runner import run_training
-from nspeech_tpu_torch.utils import infolog
 from nspeech_tpu_torch.utils.infolog import log
 
 TRAINABLE = ("wavenet", "simple_wavenet")
@@ -50,7 +53,8 @@ def check_supported(args, cfg) -> torch.device:
     return training_device(args, cfg)
 
 
-def train_wavenet(log_dir: str, args, cfg, device: torch.device) -> None:
+def train_wavenet(log_dir: str, args, cfg, device: torch.device,
+                  dp=None) -> None:
     ckpt_dir = os.path.join(log_dir, "ckpt")
     log("Checkpoint dir: %s" % ckpt_dir)
     log("Using model: %s on %s" % (args.model, device))
@@ -67,14 +71,19 @@ def train_wavenet(log_dir: str, args, cfg, device: torch.device) -> None:
                 "lc_channels > 0 (e.g. --hparams lc_channels=%d)" % cfg.num_mels)
         log("GTA mode: local conditioning from predicted mels in %s"
             % args.gta_dir)
-    feeder = WaveNetFeeder(prepare_input_paths(args), net.receptive_field, cfg,
-                           seed=args.seed, gta_dir=args.gta_dir or None)
+    feeder = WaveNetFeeder(prepare_input_paths(args), net.receptive_field,
+                           rank_config(cfg, dp), seed=args.seed,
+                           gta_dir=args.gta_dir or None,
+                           shard_index=dp.rank if dp else 0,
+                           shard_count=dp.world if dp else 1)
     cfg.num_speakers = feeder.num_speakers
     cfg.gc_category_cardinality = feeder.num_speakers
     l2 = cfg.l2_regularization_strength or None
-    # the EFFECTIVE config (after the mutations) and the speaker map beside
-    # the checkpoints, so generation needs no flag hand-off
-    save_run_metadata(ckpt_dir, args.model, cfg, speaker_map=feeder.speaker2id)
+    if dp is None or dp.rank == 0:
+        # the EFFECTIVE config (after the mutations) and the speaker map
+        # beside the checkpoints, so generation needs no flag hand-off
+        save_run_metadata(ckpt_dir, args.model, cfg,
+                          speaker_map=feeder.speaker2id)
 
     use_gc = cfg.gc_channels > 0
     use_lc = cfg.lc_channels > 0
@@ -85,7 +94,7 @@ def train_wavenet(log_dir: str, args, cfg, device: torch.device) -> None:
     ema = float(cfg.ema_decay)
     step_fn = build_wavenet_train_step(net, optimizer, cfg, schedule=schedule,
                                        use_gc=use_gc, use_lc=use_lc,
-                                       l2_strength=l2, ema_decay=ema)
+                                       l2_strength=l2, ema_decay=ema, dp=dp)
     state = create_state(net, optimizer, args.seed, ema=bool(ema), device=device)
     ckpt = CheckpointManager(ckpt_dir, args.model, cfg,
                              speaker_map=feeder.speaker2id)
@@ -97,6 +106,7 @@ def train_wavenet(log_dir: str, args, cfg, device: torch.device) -> None:
         max_steps=args.max_steps,
         restore_step=args.restore_step,
         to_device=wavenet_batch_to_device,
+        dp=dp,
     )
 
 
@@ -135,7 +145,8 @@ def build_parser() -> argparse.ArgumentParser:
                              "cli.export_gta wrote instead of computed mels")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--device", default="cuda",
-                        help="cuda (one card) or cpu")
+                        help="cuda (one card; under torchrun the rank's "
+                             "card) or cpu")
     add_matmul_precision(parser)
     return parser
 
@@ -150,13 +161,14 @@ def main(argv=None) -> None:
         cfg = config.load_config(args.model)
         cfg.parse(args.hparams)
     device = check_supported(args, cfg)
-    run_name = args.name or args.model
-    log_dir = os.path.join(args.log_dir, run_name)
-    os.makedirs(log_dir, exist_ok=True)
-    infolog.init(os.path.join(log_dir, "train.log"), run_name, args.slack_url)
-    if args.hparams_from:
-        log("hparams base: run metadata from %s" % args.hparams_from)
-    train_wavenet(log_dir, args, cfg, device)
+    log_dir, dp = start_run(args, cfg, device, args.name or args.model)
+    try:
+        if args.hparams_from:
+            log("hparams base: run metadata from %s" % args.hparams_from)
+        train_wavenet(log_dir, args, cfg, device, dp)
+    finally:
+        if dp is not None:
+            torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

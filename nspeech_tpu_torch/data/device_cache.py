@@ -1,5 +1,5 @@
 """Device-resident batch cache for corpora that fit in device memory: port
-of ``nspeech_tpu/data/device_cache.py`` for one process.
+of ``nspeech_tpu/data/device_cache.py``.
 
 The feeder's batches of ``n_epoch_variants`` epochs are featurized, padded
 to one shape (the largest text and frame lengths among them) and held as
@@ -7,7 +7,10 @@ tensors on the training device; the stream then reshuffles their order
 every epoch from ``seed`` and moves nothing from the host per step. The
 batch composition is fixed after the warm-up, the trade the JAX package
 makes for a corpus that fits. The padded waveforms are not kept: the
-train step does not read them.
+train step does not read them. In a data-parallel run (``dp``) each rank
+caches its own feeder shard's rows on its own card, padded to the
+largest lengths over every rank's batches (one all-reduce), so that the
+ranks' batches of a step share one shape.
 """
 
 from __future__ import annotations
@@ -16,29 +19,26 @@ from typing import Iterator, List
 
 import numpy as np
 
-from nspeech_tpu_torch.data.feeder import Batch, DataFeeder
+from nspeech_tpu_torch.data.feeder import Batch, DataFeeder, pad_batch
 from nspeech_tpu_torch.train.loop import TacotronBatch, batch_to_device
 
 
 class DeviceCachedBatches:
     def __init__(self, feeder: DataFeeder, device, n_epoch_variants: int = 4,
-                 seed: int = 0):
+                 seed: int = 0, dp=None):
         host: List[Batch] = []
         for epoch in range(n_epoch_variants):
             host.extend(feeder.epoch_batches(epoch))
         if not host:
             raise RuntimeError("feeder produced no batches to cache")
-        frame_len = max(b.mel_targets.shape[1] for b in host)
-        text_len = max(b.inputs.shape[1] for b in host)
-        self._batches: List[TacotronBatch] = []
-        for b in host:
-            dt = text_len - b.inputs.shape[1]
-            df = frame_len - b.mel_targets.shape[1]
-            b = b._replace(
-                inputs=np.pad(b.inputs, ((0, 0), (0, dt))),
-                mel_targets=np.pad(b.mel_targets, ((0, 0), (0, df), (0, 0))),
-                linear_targets=np.pad(b.linear_targets, ((0, 0), (0, df), (0, 0))))
-            self._batches.append(batch_to_device(b, device))
+        lengths = [max(b.inputs.shape[1] for b in host),
+                   max(b.mel_targets.shape[1] for b in host)]
+        if dp is not None:
+            from nspeech_tpu_torch.parallel.collectives import max_over_ranks
+
+            lengths = max_over_ranks(lengths, dp)
+        self._batches: List[TacotronBatch] = [
+            batch_to_device(pad_batch(b, *lengths), device) for b in host]
         self._rng = np.random.default_rng(seed)
         self.n_batches = len(self._batches)
         self.cached_mb = sum(x.numel() * x.element_size()

@@ -67,6 +67,19 @@ def pad_targets(targets: List[np.ndarray], r: int,
     ])
 
 
+def pad_batch(batch: Batch, text_len: int, frame_len: int) -> Batch:
+    """``batch`` with its inputs padded to ``text_len`` symbols and its
+    targets to ``frame_len`` frames (the waveforms, which the train step
+    does not read, as they are): one shape for a set of batches (the
+    device cache's, the ranks' of a data-parallel step)."""
+    dt = text_len - batch.inputs.shape[1]
+    df = frame_len - batch.mel_targets.shape[1]
+    return batch._replace(
+        inputs=np.pad(batch.inputs, ((0, 0), (0, dt))),
+        mel_targets=np.pad(batch.mel_targets, ((0, 0), (0, df), (0, 0))),
+        linear_targets=np.pad(batch.linear_targets, ((0, 0), (0, df), (0, 0))))
+
+
 class DataFeeder:
     """Bucketed, shape-stable batch stream.
 
@@ -81,6 +94,9 @@ class DataFeeder:
       cmudict: optional CMUDict for random ARPAbet substitution
         (each word with probability 0.5 in an example drawn with
         probability 0.5).
+      shard_index / shard_count: this rank's shard of the items,
+        ``items[shard_index::shard_count]``, taken after the speaker map
+        and the holdout split, which stay global (as the JAX package's).
     """
 
     def __init__(
@@ -94,6 +110,8 @@ class DataFeeder:
         cmudict=None,
         prefetch: int = 4,
         holdout: int = 0,
+        shard_index: int = 0,
+        shard_count: int = 1,
     ):
         self._cfg = cfg
         self._cache_dir = cache_dir
@@ -125,7 +143,7 @@ class DataFeeder:
                       .astype(int).tolist())
             self.holdout_items = [items[i] for i in sorted(idx)]
             items = [it for i, it in enumerate(items) if i not in idx]
-        self._items = items
+        self._items = items[shard_index::shard_count]
         self._memo: dict = {}
 
     def holdout_batch(self) -> Batch:

@@ -57,8 +57,9 @@ def upsample_frames(frames: np.ndarray, hop_length: int, length: int) -> np.ndar
 
 
 class WaveNetFeeder:
-    """Fixed-shape window stream for WaveNet training (one process: every
-    item of the corpus)."""
+    """Fixed-shape window stream for WaveNet training. A rank of a
+    data-parallel run reads ``items[shard_index::shard_count]`` (the
+    speaker map stays global)."""
 
     def __init__(
         self,
@@ -68,6 +69,8 @@ class WaveNetFeeder:
         seed: int = 0,
         frame_lc: bool = True,
         gta_dir: Optional[str] = None,
+        shard_index: int = 0,
+        shard_count: int = 1,
     ):
         self._cfg = cfg
         self._seed = seed
@@ -94,7 +97,7 @@ class WaveNetFeeder:
         items = load_items(input_paths) if isinstance(input_paths, dict) else list(input_paths)
         self.speaker2id = build_speaker_map(items)
         self.num_speakers = len(self.speaker2id)
-        self._items = items
+        self._items = items[shard_index::shard_count]
 
     def _gta_mel(self, wav_path: str, trimmed_len: int) -> np.ndarray:
         """The exported teacher-forced mel of one utterance with silence

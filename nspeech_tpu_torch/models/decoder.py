@@ -24,6 +24,7 @@ from typing import Callable, Optional, Tuple
 import torch
 import torch.utils._pytree as pytree
 
+from nspeech_tpu_torch.parallel import collectives
 from nspeech_tpu_torch.utils.tree import tree_leaves
 
 
@@ -72,8 +73,8 @@ def scan_teacher(step: Callable, carry0, inputs: torch.Tensor,
     outs, aligns = [], []
     for x in inputs:
         if sampling_ratio > 0.0:
-            use_model = torch.rand(x.shape[0], generator=generator,
-                                   device=x.device) < sampling_ratio
+            use_model = collectives.rand_rows(
+                (x.shape[0],), generator, x.device) < sampling_ratio
             x = torch.where(use_model[:, None], prev.detach(), x)
         carry, (out, align) = step(carry, x)
         prev = out[:, -num_mels:]
@@ -114,6 +115,35 @@ def start_autoregressive(
                           steps)
 
 
+def _chunk(step: Callable, carry, k: int, num_mels: int,
+           stop_threshold: float):
+    """``k`` decode steps: ``((outs, aligns), carry, done)`` with the
+    alignments not yet zeroed and ``done`` [k + 1] bool: whether every
+    row had stopped before each step, and after the last."""
+    t, cell, x, finished, steps = carry
+    outs, aligns, done = [], [], []
+    for _ in range(k):
+        done.append(finished.all())
+        cell, (out, align) = step(cell, x)
+        out = torch.where(finished[:, None], torch.zeros_like(out), out)
+        now = _stopped(out, stop_threshold)
+        steps = torch.where(~finished & now, t + 1, steps).to(torch.int32)
+        finished = finished | now
+        x = out[:, -num_mels:]
+        outs.append(out)
+        aligns.append(align)
+        t += 1
+    done.append(finished.all())
+    return ((torch.stack(outs), torch.stack(aligns)),
+            (t, cell, x, finished, steps), torch.stack(done))
+
+
+def _zero_done(aligns: torch.Tensor, done: torch.Tensor) -> torch.Tensor:
+    """The alignments of the steps that ran after every row had stopped
+    (``done`` [k] bool) are zeros."""
+    return torch.where(done[:, None, None], torch.zeros_like(aligns), aligns)
+
+
 def scan_autoregressive_chunk(step: Callable, carry, k: int, num_mels: int,
                               stop_threshold: float = 0.0):
     """Exactly ``k`` decode steps from a :func:`start_autoregressive`
@@ -125,22 +155,9 @@ def scan_autoregressive_chunk(step: Callable, carry, k: int, num_mels: int,
     state keeps evolving), and once every row has stopped the alignments
     are zeros too, so chained chunks equal the reference's one-shot
     buffers."""
-    t, cell, x, finished, steps = carry
-    outs, aligns = [], []
-    for _ in range(k):
-        all_done = finished.all()   # before this step: the reference's exit
-        cell, (out, align) = step(cell, x)
-        out = torch.where(finished[:, None], torch.zeros_like(out), out)
-        align = torch.where(all_done, torch.zeros_like(align), align)
-        now = _stopped(out, stop_threshold)
-        steps = torch.where(~finished & now, t + 1, steps).to(torch.int32)
-        finished = finished | now
-        x = out[:, -num_mels:]
-        outs.append(out)
-        aligns.append(align)
-        t += 1
-    return ((torch.stack(outs), torch.stack(aligns)),
-            (t, cell, x, finished, steps))
+    (outs, aligns), carry, done = _chunk(step, carry, k, num_mels,
+                                         stop_threshold)
+    return (outs, _zero_done(aligns, done[:k])), carry
 
 
 def scan_autoregressive(
@@ -153,11 +170,20 @@ def scan_autoregressive(
     stop_threshold: float = 0.0,
     initial_finished: Optional[torch.Tensor] = None,
     check_every: int = 8,
+    all_done: Optional[Callable] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Returns (outputs [max_iters, N, r*M], alignments [max_iters, N, T_in],
     steps [N] int32): :func:`start_autoregressive`, then chunks of
     ``check_every`` steps until every row has stopped or ``max_iters``
-    steps ran; the steps never run are zeros (see the chunk's rules)."""
+    steps ran; the steps never run are zeros (see the chunk's rules).
+
+    ``all_done`` decodes one shard of a batch split over devices
+    (``Synthesizer(mesh=...)``): it takes this shard's flags [k] (bool,
+    on the device: had every row stopped) and returns them reduced over
+    every shard (on the host), once per chunk. Each shard then runs until
+    every row of every shard has stopped, and zeroes the alignments of
+    the steps after that, as the reference's one ``while_loop`` over the
+    whole batch does."""
     (out, align), carry = start_autoregressive(
         step, carry0, batch, num_mels, max_iters, stop_threshold,
         initial_finished)
@@ -165,13 +191,16 @@ def scan_autoregressive(
     aligns = align.new_zeros((max_iters,) + tuple(align.shape))
     outs[0] = out
     aligns[0] = align
+    reduce = all_done or (lambda flags: flags)
+    finished = bool(reduce(carry[3].all().reshape(1))[0])
     t = 1
-    while t < max_iters and not bool(carry[3].all()):
+    while t < max_iters and not finished:
         k = min(check_every, max_iters - t)
-        (o, a), carry = scan_autoregressive_chunk(step, carry, k, num_mels,
-                                                  stop_threshold)
+        (o, a), carry, done = _chunk(step, carry, k, num_mels, stop_threshold)
+        done = torch.as_tensor(reduce(done), device=a.device)
         outs[t:t + k] = o
-        aligns[t:t + k] = a
+        aligns[t:t + k] = _zero_done(a, done[:k])
+        finished = bool(done[k])
         t += k
     return outs, aligns, carry[4]
 
@@ -242,7 +271,10 @@ def guided_attention_penalty(alignments: torch.Tensor,
                              sigma: float) -> torch.Tensor:
     """Guided-attention penalty (Tachibana et al. 2017): the mean over
     valid (input, decoder-step) cells of ``A[t, s] * (1 - exp(-(t/T -
-    s/S)^2 / (2 sigma^2)))`` for alignments [N, T_in, S]."""
+    s/S)^2 / (2 sigma^2)))`` for alignments [N, T_in, S]. The count of
+    valid cells depends on the data, so in a data-parallel step it is
+    summed over the ranks and each rank returns ``world`` times its share
+    of the sum: the mean over the ranks is the global penalty."""
     n, t_in, s = alignments.shape
     dev = alignments.device
     t = torch.arange(t_in, device=dev)[None, :, None]
@@ -252,7 +284,14 @@ def guided_attention_penalty(alignments: torch.Tensor,
     w = 1.0 - torch.exp(-((t_norm - s_norm) ** 2) / (2.0 * sigma * sigma))
     valid = ((t < input_lengths[:, None, None])
              & (u < out_steps[:, None, None]))
-    return torch.sum(alignments * w * valid) / torch.clamp(valid.sum(), min=1)
+    total = torch.sum(alignments * w * valid)
+    if collectives.current() is None:
+        return total / torch.clamp(valid.sum(), min=1)
+    # a data-parallel step: the global denominator, and this rank's share
+    # scaled so that the ranks' mean is the global penalty
+    dp = collectives.current()
+    return dp.world * total / torch.clamp(
+        collectives.global_count(valid.sum()), min=1)
 
 
 def maybe_guided_attention(cfg, alignments, input_lengths, mel_targets,

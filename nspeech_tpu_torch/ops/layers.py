@@ -27,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from nspeech_tpu_torch.ops.policy import upcast
+from nspeech_tpu_torch.parallel import collectives
 
 Params = Dict[str, object]
 
@@ -185,15 +186,22 @@ def batch_norm(params: Params, state: Params, x: torch.Tensor,
     the biased one, as ``jnp.var``), returns ``(y, new_state)`` with the
     running statistics moved by momentum ``BN_MOMENTUM``. A bf16 ``x`` is
     normalized in float32 (moments and running statistics included) and
-    the result returned in bf16."""
+    the result returned in bf16. Inside a data-parallel step
+    (``parallel/collectives.py``) the moments are those of the global
+    batch, all-reduced over the ranks, so the running statistics are the
+    same on every rank."""
     xf = upcast(x)
     scale, offset = upcast(params["scale"]), upcast(params["offset"])
     if not is_training:
         inv = torch.rsqrt(state["var"] + BN_EPS) * scale
         return ((xf - state["mean"]) * inv + offset).to(x.dtype)
     axes = tuple(range(x.ndim - 1))
-    mean = xf.mean(dim=axes)
-    var = xf.var(dim=axes, correction=0)
+    if collectives.current() is not None:
+        # a data-parallel step: the moments of the global batch
+        mean, var = collectives.global_moments(xf, axes)
+    else:
+        mean = xf.mean(dim=axes)
+        var = xf.var(dim=axes, correction=0)
     new_state = {
         "mean": BN_MOMENTUM * state["mean"] + (1 - BN_MOMENTUM) * mean.detach(),
         "var": BN_MOMENTUM * state["var"] + (1 - BN_MOMENTUM) * var.detach(),
@@ -219,12 +227,14 @@ def prenet(params: Params, x: torch.Tensor, drop_rate: float = 0.0,
            generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """Stacked dense+relu; with ``drop_rate`` > 0 and a ``generator``,
     inverted dropout after each layer (keep with probability
-    ``1 - drop_rate``, scale kept values by ``1 / (1 - drop_rate)``)."""
+    ``1 - drop_rate``, scale kept values by ``1 / (1 - drop_rate)``). In a
+    data-parallel step the mask is this rank's rows of the global batch's
+    (``collectives.rand_rows``)."""
     for layer in params["layers"]:
         x = dense(layer, x, torch.relu)
         if drop_rate > 0.0 and generator is not None:
-            keep = torch.rand(x.shape, generator=generator,
-                              device=x.device) < 1.0 - drop_rate
+            keep = collectives.rand_rows(x.shape, generator,
+                                         x.device) < 1.0 - drop_rate
             x = torch.where(keep, x / (1.0 - drop_rate), torch.zeros_like(x))
     return x
 

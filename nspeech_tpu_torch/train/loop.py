@@ -9,7 +9,9 @@ loops by default, as the JAX package's does (``ops/deferred.py``):
 autograd alone forms and adds a full-size weight gradient at every
 decoder step. A feeder batch (numpy) reaches the device through pinned
 host memory; a batch already on the device (``data/device_cache.py``)
-passes through.
+passes through. With a ``parallel.mesh.DataParallel`` (``dp``) a step
+is the data-parallel one: each rank runs the plain step on its rows and
+leaves with the plain step's result on the global batch.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from typing import Any, NamedTuple, Optional
 import numpy as np
 import torch
 
+from nspeech_tpu_torch.parallel import collectives
 from nspeech_tpu_torch.train.optim import apply_updates, global_norm
 from nspeech_tpu_torch.utils.tree import tree_leaves, tree_map
 
@@ -132,11 +135,18 @@ def _grads(loss: torch.Tensor, params):
 
 def tacotron_grads(model, state: TrainState, batch: TacotronBatch,
                    generator: Optional[torch.Generator],
-                   deferred_dw: Optional[bool] = None):
+                   deferred_dw: Optional[bool] = None, dp=None):
     """(grads, metrics, new_bn_state) of the training loss at
     ``state.params``. ``deferred_dw`` (default: on when the model has
     ``deferred_zero_inputs``) defers the loops' weight gradients
-    (``ops/deferred.py``); False takes all of them from autograd."""
+    (``ops/deferred.py``); False takes all of them from autograd.
+
+    With ``dp`` (a ``parallel.mesh.DataParallel``) ``batch`` is this
+    rank's rows of the global batch, and the results are the global
+    batch's: batch norm, the guided-attention denominator and the random
+    draws are global inside the forward (``parallel/collectives.py``), and
+    the gradients (after the deferred merge) and the metrics are averaged
+    over the ranks."""
     if deferred_dw is None:
         deferred_dw = hasattr(model, "deferred_zero_inputs")
     taps = None
@@ -146,34 +156,43 @@ def tacotron_grads(model, state: TrainState, batch: TacotronBatch,
             n, t_out // model.cfg.outputs_per_step,
             t_in=batch.inputs.shape[1], t_out=t_out)
     params = _trainable(state.params)
-    outputs, new_bn = model.forward_train(
-        params, state.bn_state, batch.inputs, batch.input_lengths,
-        batch.speaker_ids, batch.mel_targets, is_training=True,
-        generator=generator, deferred=taps)
-    loss, metrics = model.loss(outputs, batch.mel_targets, batch.linear_targets)
-    grads = _grads(loss, params)
-    if taps is not None:
-        with torch.no_grad():
+    with collectives.data_parallel(dp):
+        outputs, new_bn = model.forward_train(
+            params, state.bn_state, batch.inputs, batch.input_lengths,
+            batch.speaker_ids, batch.mel_targets, is_training=True,
+            generator=generator, deferred=taps)
+        loss, metrics = model.loss(outputs, batch.mel_targets,
+                                   batch.linear_targets)
+        grads = _grads(loss, params)
+    with torch.no_grad():
+        if taps is not None:
             grads = model.deferred_merge_grads(grads, taps)
-    metrics = {k: v.detach() for k, v in metrics.items()}
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        if dp is not None:
+            grads = collectives.average_grads(grads, dp)
+            metrics = collectives.average_metrics(metrics, dp)
     return grads, metrics, new_bn
 
 
 def build_tacotron_train_step(model, optimizer, schedule=None,
                               ema_decay: float = 0.0,
-                              deferred_dw: Optional[bool] = None):
+                              deferred_dw: Optional[bool] = None, dp=None):
     """``step_fn(state, batch, generator) -> (state, metrics)`` for
     Tacotron-1/2 on a :class:`TacotronBatch`. Dropout and scheduled
     sampling draw from ``generator`` (on the batch's device). The metrics
     stay on the device: the loss terms, ``grad_norm`` (before the clip),
     ``grad_norms`` (per leaf) and ``learning_rate`` (a float).
     ``deferred_dw`` as in :func:`tacotron_grads`: on by default, as the
-    JAX package's step."""
+    JAX package's step. With ``dp`` (the counterpart of the JAX step's
+    ``mesh``) it is the data-parallel step: ``batch`` holds this rank's
+    rows, every rank passes a generator of the same seed, and every rank
+    leaves with the state and metrics of the plain step on the global
+    batch (:func:`tacotron_grads`)."""
 
     def step_fn(state: TrainState, batch: TacotronBatch,
                 generator: Optional[torch.Generator]):
         grads, metrics, new_bn = tacotron_grads(model, state, batch, generator,
-                                                deferred_dw)
+                                                deferred_dw, dp)
         with torch.no_grad():
             updates, new_opt = optimizer.update(grads, state.opt_state)
             new_params = apply_updates(state.params, updates)
@@ -191,11 +210,13 @@ def build_tacotron_train_step(model, optimizer, schedule=None,
 
 def wavenet_grads(net, params, batch: WaveNetDeviceBatch, cfg,
                   use_gc: bool = False, use_lc: bool = False,
-                  l2_strength: Optional[float] = None):
+                  l2_strength: Optional[float] = None, dp=None):
     """(grads, metrics) of the WaveNet loss at ``params``: the conditioning
     upsampled on the batch's device (``ops/upsample.py`` ``batch_lc``),
     the speakers' rows of the gc table, the float32 cross-entropy plus the
-    L2 term."""
+    L2 term. With ``dp`` the gradients and metrics are averaged over the
+    ranks (every window has one shape, so the mean of the ranks'
+    cross-entropies is the global one)."""
     from nspeech_tpu_torch.ops.upsample import batch_lc
 
     params = _trainable(params)
@@ -204,23 +225,31 @@ def wavenet_grads(net, params, batch: WaveNetDeviceBatch, cfg,
         lc=batch_lc(batch, cfg) if use_lc else None)
     loss, metrics = net.loss(logits, targets, params=params,
                              l2_strength=l2_strength)
-    return _grads(loss, params), {k: v.detach() for k, v in metrics.items()}
+    grads = _grads(loss, params)
+    with torch.no_grad():
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        if dp is not None:
+            grads = collectives.average_grads(grads, dp)
+            metrics = collectives.average_metrics(metrics, dp)
+    return grads, metrics
 
 
 def build_wavenet_train_step(net, optimizer, cfg, schedule=None,
                              use_gc: bool = False, use_lc: bool = False,
                              l2_strength: Optional[float] = None,
-                             ema_decay: float = 0.0):
+                             ema_decay: float = 0.0, dp=None):
     """``step_fn(state, batch, generator) -> (state, metrics)`` for WaveNet
     on a :class:`WaveNetDeviceBatch`. The step is deterministic: it draws
     nothing from ``generator``. Metrics as the Tacotron step's: ``loss``
     (the cross-entropy; with L2 also ``l2_loss`` and ``total_loss``),
-    ``grad_norm``, ``grad_norms``, ``learning_rate``."""
+    ``grad_norm``, ``grad_norms``, ``learning_rate``. With ``dp`` it is
+    the data-parallel step over this rank's windows
+    (:func:`wavenet_grads`)."""
 
     def step_fn(state: TrainState, batch: WaveNetDeviceBatch, generator=None):
         del generator
         grads, metrics = wavenet_grads(net, state.params, batch, cfg, use_gc,
-                                       use_lc, l2_strength)
+                                       use_lc, l2_strength, dp)
         with torch.no_grad():
             updates, new_opt = optimizer.update(grads, state.opt_state)
             new_params = apply_updates(state.params, updates)

@@ -5,21 +5,52 @@ per step with sec/step and 100-step averages, the explosion guard (a loss
 above 100 or NaN restores the last checkpoint, up to ``max_recoveries``
 times, then aborts), metric summaries, checkpoints, and artifact and
 holdout-eval hooks whose failures are logged and do not stop training.
+
+Data-parallel runs (``pick_mesh`` under ``torchrun``): every rank steps
+and restores; rank 0 alone writes checkpoints, summaries, artifacts and
+the holdout loss, and the other ranks meet it at a barrier after each
+checkpoint. Rank 0's own code calls no collective. The loss that the
+explosion guard reads is the global one, so every rank takes the same
+branch.
 """
 
 from __future__ import annotations
 
 import math
+import os
 import time
 from typing import Callable, Iterator, Optional
 
-from nspeech_tpu_torch.train.checkpoint import CheckpointManager
 import torch
 
+from nspeech_tpu_torch.parallel import collectives
+from nspeech_tpu_torch.parallel.mesh import (DataParallel, distributed_env,
+                                             init_distributed)
+from nspeech_tpu_torch.train.checkpoint import CheckpointManager
 from nspeech_tpu_torch.train.loop import TrainState, step_generator
 from nspeech_tpu_torch.utils import ValueWindow
 from nspeech_tpu_torch.utils.infolog import log
 from nspeech_tpu_torch.utils.metrics import MetricWriter
+
+
+def pick_mesh(batch_size: int, device) -> Optional[DataParallel]:
+    """This run's data-parallel group: None for one process; under
+    ``torchrun`` (``RANK`` and ``WORLD_SIZE`` set) the process group of
+    ``WORLD_SIZE`` ranks (``parallel/mesh.py`` ``init_distributed``: NCCL
+    on ``cuda:LOCAL_RANK``, gloo on the CPU), even for one rank. A
+    ``batch_size`` that does not divide across the ranks exits, before
+    the group forms: the JAX package warns and trains on one device,
+    which with W processes would be W independent runs."""
+    if not distributed_env():
+        return None
+    world = int(os.environ["WORLD_SIZE"])
+    if batch_size % world:
+        raise SystemExit(
+            f"batch_size={batch_size} does not divide across {world} ranks: "
+            f"set batch_size to a multiple of {world} (a deliberate deviation "
+            "from the JAX trainer's single-device fallback, ROADMAP.md "
+            "section 3)")
+    return init_distributed(torch.device(device).type)
 
 
 def run_training(
@@ -40,6 +71,7 @@ def run_training(
     log_interval: int = 1,
     *,
     to_device: Callable,
+    dp: Optional[DataParallel] = None,
 ) -> TrainState:
     """Run ``step_fn`` over ``batches`` until ``max_steps`` (or forever);
     returns the last state. ``to_device(batch, device)`` gives a batch as
@@ -50,14 +82,16 @@ def run_training(
     ``eval_fn(state, step, writer)`` at every summary interval. With
     ``log_interval`` > 1 the loss (a device sync) is read only every N-th
     step and at summaries, checkpoints and the last step; the explosion
-    guard then fires at the next read."""
+    guard then fires at the next read. With ``dp`` (:func:`pick_mesh`)
+    ``step_fn`` is the data-parallel step and rank 0 alone writes."""
+    lead = dp is None or dp.rank == 0
     if restore_step is not None or ckpt.latest_step() is not None:
         state = ckpt.restore(state, step=restore_step, device=device)
         log(f"Resumed from checkpoint step {int(state.step)}", slack=True)
     else:
         log("Starting new training run", slack=True)
 
-    writer = MetricWriter(log_dir)
+    writer = MetricWriter(log_dir) if lead else None
     time_window, loss_window = ValueWindow(100), ValueWindow(100)
     recoveries = 0
     step = int(state.step)
@@ -98,6 +132,14 @@ def run_training(
                     continue
                 raise RuntimeError("Loss exploded")
 
+            if not lead:
+                if step % checkpoint_interval == 0 or (
+                        max_steps is not None and step >= max_steps):
+                    collectives.barrier(dp)    # rank 0 saves
+                if max_steps is not None and step >= max_steps:
+                    break
+                continue
+
             if step % summary_interval == 0 and eval_fn is not None:
                 try:
                     eval_fn(state, step, writer)
@@ -130,7 +172,11 @@ def run_training(
                 if step % checkpoint_interval != 0:
                     log("Reached max steps (%d); saving final checkpoint" % step)
                     ckpt.save(step, state)
+                collectives.barrier(dp)
                 break
+            if step % checkpoint_interval == 0:
+                collectives.barrier(dp)
     finally:
-        writer.close()
+        if writer is not None:
+            writer.close()
     return state

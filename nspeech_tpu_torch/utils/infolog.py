@@ -18,7 +18,8 @@ _FORMAT = "%Y-%m-%d %H:%M:%S.%f"
 class Logger:
     def __init__(self, filename: Optional[str] = None,
                  run_name: Optional[str] = None,
-                 slack_url: Optional[str] = None):
+                 slack_url: Optional[str] = None, quiet: bool = False):
+        self._quiet = quiet   # a data-parallel rank other than 0 logs nothing
         self._file = open(filename, "a") if filename else None
         if self._file:
             self._file.write("\n" + "-" * 65 + "\n")
@@ -29,6 +30,8 @@ class Logger:
         atexit.register(self.close)
 
     def log(self, msg: str, slack: bool = False) -> None:
+        if self._quiet:
+            return
         print(msg, flush=True)
         if self._file is not None:
             stamp = datetime.now().strftime(_FORMAT)[:-3]
@@ -58,10 +61,11 @@ class Logger:
 _default = Logger()
 
 
-def init(filename: str, run_name: str, slack_url: Optional[str] = None) -> Logger:
+def init(filename: Optional[str], run_name: str,
+         slack_url: Optional[str] = None, quiet: bool = False) -> Logger:
     global _default
     _default.close()
-    _default = Logger(filename, run_name, slack_url)
+    _default = Logger(filename, run_name, slack_url, quiet)
     return _default
 
 

@@ -33,17 +33,21 @@ DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
 @contextlib.contextmanager
-def trace(log_dir: str, record_shapes: bool = False):
+def trace(log_dir: Optional[str], record_shapes: bool = False):
     """Profile the block; yields the ``torch.profiler.profile`` object
-    (recording each operation's input shapes with ``record_shapes``)."""
+    (recording each operation's input shapes with ``record_shapes``).
+    The Chrome trace goes to ``log_dir``; None writes no file (a caller
+    that reads ``key_averages()`` alone)."""
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
-    os.makedirs(log_dir, exist_ok=True)
     with profile(activities=activities, record_shapes=record_shapes) as prof:
         yield prof
+    if log_dir is None:
+        return
+    os.makedirs(log_dir, exist_ok=True)
     stamp = time.strftime("%Y%m%d-%H%M%S") + "-%d" % os.getpid()
     raw = os.path.join(log_dir, stamp + ".trace.json")
     prof.export_chrome_trace(raw)

@@ -305,16 +305,19 @@ def profile_wavenet(corpus, extra: str, trace_dir: str) -> None:
 
 
 def profile_step(corpus, extra: str, trace_dir: str, deferred_dw: bool = True,
-                 tables: bool = True, cache_dir=None) -> dict:
-    """The Tacotron-2 step at batch 32 on the corpus's longest batch (its
-    features cached in ``cache_dir`` when given), with the loops' weight
-    gradients deferred (the default) or all from autograd: its wall time
-    after two warm-up steps, its peak memory, then :func:`print_profile`
-    of it; returns the profile's numbers with ``peak_gib``."""
+                 tables: bool = True, cache_dir=None, t_out=None) -> dict:
+    """The Tacotron-2 step at batch 32 on the corpus's longest batch, or
+    its first batch padded to ``t_out`` frames (its features cached in
+    ``cache_dir`` when given), with the loops' weight gradients deferred
+    (the default) or all from autograd: its wall time after two warm-up
+    steps, its peak memory, then :func:`print_profile` of it (its Chrome
+    trace into ``trace_dir``; None writes none); returns the profile's
+    numbers with ``peak_gib``."""
     cfg = load_config("taco2").parse(extra)
     batches = list(DataFeeder({"ljspeech": corpus}, cfg, seed=0,
                               cache_dir=cache_dir).epoch_batches(0))
-    longest = max(batches, key=lambda b: b.mel_targets.shape[1])
+    longest = (max(batches, key=lambda b: b.mel_targets.shape[1]) if t_out is None
+               else next(b for b in batches if b.mel_targets.shape[1] == t_out))
     model = Tacotron2(cfg)
     opt, sched = make_optimizer(cfg, "taco2")
     state = create_state(model, opt, 0, device="cuda")

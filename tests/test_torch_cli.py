@@ -185,22 +185,79 @@ def test_synthesize_cli_matches_text_to_speech(tts_ckpts, tmp_path, vocoder,
     np.testing.assert_array_equal(got, wavfile.read(str(tmp_path / "ref.wav"))[1])
 
 
-@pytest.mark.parametrize("flag,item", [("--data-parallel", "item 5")])
-def test_synthesize_cli_refusals(tts_ckpts, flag, item):
+@pytest.mark.parametrize("flags,item", [(["--speaker", "7"], "gc id")])
+def test_synthesize_cli_refusals(tts_ckpts, flags, item):
+    """A speaker past the vocoder's gc table exits before any launch."""
     d, _, _ = tts_ckpts
     with pytest.raises(SystemExit, match=item):
         port_synth.main(["--checkpoint", str(d / "taco"), "--text", "hi",
-                         "--device", "cpu", flag])
+                         "--vocoder-checkpoint", str(d / "voc"),
+                         "--device", "cpu"] + flags)
+
+
+@pytest.mark.parametrize("long", [False, True])
+def test_synthesize_cli_data_parallel_matches_mesh_tts(tts_ckpts, tmp_path, long):
+    """``--data-parallel`` serves over the one-process mesh of the device
+    (one CPU device here): the samples of ``TextToSpeech`` over
+    ``Synthesizer(mesh=...)`` and the vocoder, and of the CLI without the
+    flag."""
+    from nspeech_tpu_torch.parallel import make_mesh
+    from nspeech_tpu_torch.serving import synthesize_long
+
+    d, syn, voc = tts_ckpts
+    text = LONG_TEXT if long else "hello there"
+    flags = ["--checkpoint", str(d / "taco"), "--text", text, "--speaker", "1",
+             "--vocoder-checkpoint", str(d / "voc"), "--device", "cpu"]
+    flags += ["--long"] if long else ["--temperature", "0.7"]
+    port_synth.main(flags + ["--data-parallel", "--out", str(tmp_path / "dp.wav")])
+    port_synth.main(flags + ["--out", str(tmp_path / "plain.wav")])
+    mesh_syn = Synthesizer(syn.cfg, device="cpu", mesh=make_mesh(["cpu"]))
+    mesh_syn.set_variables(syn._params, syn._bn_state, model=syn.model)
+    tts = TextToSpeech(mesh_syn, voc)
+    if long:
+        wav = synthesize_long(tts, text, 1, sample_rate=syn.cfg.sample_rate)
+    else:
+        wav, _, _ = tts.synthesize(text, 1, temperature=0.7)
+    save_wav(wav, str(tmp_path / "ref.wav"), syn.cfg.sample_rate)
+    got = wavfile.read(str(tmp_path / "dp.wav"))[1]
+    assert got.size > 0
+    np.testing.assert_array_equal(got, wavfile.read(str(tmp_path / "ref.wav"))[1])
+    np.testing.assert_array_equal(got, wavfile.read(str(tmp_path / "plain.wav"))[1])
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--artifact", "exported", "--vocoder-checkpoint", "v"], "needs --checkpoint"),
-    (["--checkpoint", "unused", "--data-parallel"], "item 5")])
+    (["--artifact", "exported", "--vocoder-checkpoint", "v"], "needs --checkpoint")])
 def test_demo_server_refusals(argv, item):
     from nspeech_tpu_torch.cli import demo_server
 
     with pytest.raises(SystemExit, match=item):
         demo_server.main(argv + ["--device", "cpu"])
+
+
+def test_demo_server_data_parallel_serves(tts_ckpts, monkeypatch, capsys):
+    """``demo_server --data-parallel`` builds its synthesizer on the mesh
+    and answers ``/synthesize`` with the WAV of the plain server."""
+    import io
+
+    from nspeech_tpu_torch.cli import demo_server
+
+    d, syn, _ = tts_ckpts
+    apps = []
+    monkeypatch.setattr(demo_server, "serve_forever",
+                        lambda app, port: apps.append(app))
+    for extra in (["--data-parallel"], []):
+        demo_server.main(["--checkpoint", str(d / "taco"), "--device", "cpu",
+                          "--port", "0"] + extra)
+    assert "Serving data-parallel over 1 devices" in capsys.readouterr().out
+    bodies = []
+    for app in apps:
+        got = {}
+        body = b"".join(app({"PATH_INFO": "/synthesize", "QUERY_STRING": "text=hi",
+                             "wsgi.input": io.BytesIO()},
+                            lambda status, headers: got.update(status=status)))
+        assert got["status"].startswith("200") and body[:4] == b"RIFF"
+        bodies.append(body)
+    assert bodies[0] == bodies[1]
 
 
 LONG_TEXT = ("Long form speech. It splits at sentences, then clauses, "

@@ -42,6 +42,8 @@ from tests.make_synth_corpus import make_corpus
 
 torch.set_num_threads(1)
 
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
 TINY = ("batch_size=2,batch_group_size=2,max_iters=6,griffin_lim_iters=3,"
         "encoder_conv_layers=2,postnet_conv_layers=2,expand_conv_layers=2,"
         "encoder_conv_channels=32,attention_dim=32,postnet_conv_channels=32,"
@@ -277,12 +279,14 @@ def test_reduced_precision_options_train(corpus, tmp_path, capsys, extra,
 
 @pytest.mark.parametrize("extra,env,match", [
     (["--model", "wavenet"], None, "nspeech_tpu_torch.cli.train_wavenet"),
-    ([], "2", "item 5"),
+    # batch 2 over 3 ranks: exits before any process group forms
+    ([], "3", "multiple of 3"),
 ])
 def test_unported_options_exit_with_their_roadmap_item(corpus, tmp_path,
                                                        monkeypatch, extra, env,
                                                        match):
     if env is not None:
+        monkeypatch.setenv("RANK", "0")
         monkeypatch.setenv("WORLD_SIZE", env)
     argv = ["--device", "cpu", "--ljspeech", corpus, "--log-dir", str(tmp_path),
             "--model", "taco2"] + extra
@@ -290,6 +294,44 @@ def test_unported_options_exit_with_their_roadmap_item(corpus, tmp_path,
         train_cli.main(argv)
     assert "ROADMAP.md" in str(e.value) or "train_wavenet" in match
     assert not os.path.exists(tmp_path / "taco2" / "ckpt")
+
+
+@pytest.mark.parametrize("trainer", ["train", "train_wavenet"])
+def test_two_ranks_train_data_parallel(corpus, tmp_path, trainer):
+    """``torchrun --nproc_per_node 2`` (gloo on the CPU): 2 steps of batch
+    4, each rank 2 rows of its shard of the corpus; rank 0 alone writes
+    the run directory (one checkpoint at step 2, one line per step in
+    ``metrics.jsonl``), and the checkpoint serves."""
+    hparams = (TINY if trainer == "train" else TINY_WN).replace(
+        "batch_size=2", "batch_size=4")
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep
+               + os.environ.get("PYTHONPATH", ""), OMP_NUM_THREADS="1")
+    sock = __import__("socket").socket()
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", "2",
+         "--master_addr", "127.0.0.1", "--master_port", str(port),
+         "-m", "nspeech_tpu_torch.cli." + trainer, "--device", "cpu",
+         "--model", "taco2" if trainer == "train" else "wavenet",
+         "--ljspeech", corpus, "--log-dir", str(tmp_path), "--max-steps", "2",
+         "--checkpoint-interval", "2", "--summary-interval", "1",
+         "--hparams", hparams],
+        capture_output=True, text=True, env=env, cwd=ROOT, timeout=300)
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    assert "Data-parallel over 2 ranks (gloo backend): 2 of the batch's 4" in proc.stdout
+    assert proc.stdout.count("Step 2 ") == 1           # rank 0 logs alone
+    name = "taco2" if trainer == "train" else "wavenet"
+    ckpt = tmp_path / name / "ckpt"
+    assert sorted(os.listdir(ckpt / "train")) == ["2.pt"]
+    recs = [json.loads(line) for line in open(tmp_path / name / "metrics.jsonl")]
+    assert [r["step"] for r in recs if "loss" in r] == [1, 2]
+    assert all(np.isfinite(r["loss"]) for r in recs if "loss" in r)
+    assert json.load(open(ckpt / "config.json"))["hparams"]["batch_size"] == 4
+    if trainer == "train":
+        wav, mel, _ = Synthesizer.from_checkpoint(str(ckpt), device="cpu").synthesize("Hi.")
+        assert wav.size > 0 and np.isfinite(mel).all()
 
 
 def test_cuda_without_a_card_exits(corpus, tmp_path):
