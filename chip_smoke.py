@@ -172,7 +172,21 @@
     CLI's; ``cli.synthesize --data-parallel`` with the vocoder, its WAV
     equal to the CLI's without the flag (its K1 launches counted). No
     check falls back to the CPU.
-17. Prints each phase's seconds as it ends (``phase <name>: <s> s``),
+17. Runs tensor parallelism on the one card (``tensor_phase``, after
+    phase 16): the full-width Tacotron-2 step (batch 32 of
+    ``random_batch``, T_out 105, dropout from one generator) with its
+    state sharded by ``parallel/tensor.py`` (a) at world size 1 over NCCL
+    (data 1 x model 1) in this process and (b) at model 2 in two
+    processes of this script (``--tensor-worker``) over gloo, both on
+    ``cuda:0``: NCCL refuses two ranks on one card, and gloo carries the
+    CUDA tensors of ``all_reduce`` and ``all_gather`` through the host,
+    a check configuration and not a path for users. Each holds its
+    gathered float64 gradient within STEP_GRAD_TOL of the plain step's
+    on the card and its float32 loss within STEP_LOSS_TOL; (a) also runs
+    one bf16 step, finite and within TP_BF16_TOL of the plain bf16
+    step's loss, and times the plain and the sharded float32 step in
+    turns; (b) times each rank's warm steps.
+18. Prints each phase's seconds as it ends (``phase <name>: <s> s``),
     each form's time per sample (per step for the primed form)
     beside its bound, one ``{"kernels": [...]}`` line (one-shot, carried
     and primed records; ``launches`` summed over the paths of phases
@@ -243,6 +257,8 @@ BF16 = "compute_dtype=bfloat16"
 BF16_STEPS = 3          # steps of each bf16 CLI run
 BF16_LOSS_TOL = 2e-2    # first bf16 step's loss against the float32 step's, relative
 BF16_MEL_TOL = 0.05     # bf16 teacher-forced mels against float32 (atol and rtol, JAX's)
+TP_BF16_TOL = 1e-2      # bf16 loss, tensor-parallel against plain step: a few bf16 epsilons
+TP_TIMEOUT = 600        # seconds for the two gloo ranks of tensor_phase
 LOADER_REPS = 5         # loads per file and loader when timing
 FIRST_LOSS = {}         # the float32 CLI runs' first losses, by model
 
@@ -2749,6 +2765,183 @@ def parallel_phase(tmp: str):
     return ok, one
 
 
+def tensor_setup(seed_batch: int = 13):
+    """(model, optimizer, schedule, state, batch) of the full-width
+    Tacotron-2 steps of ``tensor_phase`` on ``cuda``: the same in this
+    process and in each ``--tensor-worker``."""
+    from nspeech_tpu_torch.config import load_config
+    from nspeech_tpu_torch.models.tacotron2 import Tacotron2
+    from nspeech_tpu_torch.train.loop import batch_to_device, create_state
+    from nspeech_tpu_torch.train.optim import make_optimizer
+
+    cfg = load_config("taco2")
+    model = Tacotron2(cfg)
+    opt, sched = make_optimizer(cfg, "taco2")
+    state = create_state(model, opt, 0, device="cuda")
+    return model, opt, sched, state, batch_to_device(
+        random_batch(seed_batch, rows=32), "cuda")
+
+
+def tensor_grads64(model, state, data, dp=None, tp=None) -> dict:
+    """The float64 gradient (by path, whole) of one step with dropout
+    from the step generator; with ``tp`` of the state sharded over it,
+    gathered."""
+    from nspeech_tpu_torch.parallel.tensor import gather_params, shard_params
+    from nspeech_tpu_torch.train.loop import step_generator, tacotron_grads
+    from nspeech_tpu_torch.utils.tree import named_leaves
+
+    torch.set_default_dtype(torch.float64)        # the decoder's zero carries too
+    try:
+        s64, d64 = to_float64(state, data)
+        if tp is not None:
+            s64 = s64._replace(params=shard_params(s64.params, tp))
+        grads = tacotron_grads(model, s64, d64, step_generator("cuda", 0, 0),
+                               dp=dp, tp=tp)[0]
+        if tp is not None:
+            grads = gather_params(grads, tp)
+    finally:
+        torch.set_default_dtype(torch.float32)
+    return dict(named_leaves(grads))
+
+
+def tensor_worker(rank: int, port: int, out_dir: str) -> int:
+    """Rank ``rank`` of the two gloo ranks on ``cuda:0`` of
+    ``tensor_phase`` (b), model 2: one float32 step's loss, warm seconds
+    per step, and (rank 0) the gathered float64 gradient, saved to
+    ``out_dir``."""
+    import os
+
+    from nspeech_tpu_torch.ops.policy import set_matmul_precision
+    from nspeech_tpu_torch.parallel.mesh import init_distributed
+    from nspeech_tpu_torch.parallel.tensor import shard_train_state
+    from nspeech_tpu_torch.train.loop import (build_tacotron_train_step,
+                                              step_generator)
+
+    set_matmul_precision("highest")
+    torch.distributed.init_process_group(
+        "gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank, world_size=2)
+    dp, tp = init_distributed("cuda:0", rank, 2, model_parallel=2)
+    model, opt, sched, state, data = tensor_setup()
+    step = build_tacotron_train_step(model, opt, sched, dp=dp, tp=tp)
+    local = shard_train_state(state, tp)
+    out = {"backend": torch.distributed.get_backend(tp.group), "secs": []}
+    for i in range(TURN_STEPS + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = float(step(local, data, step_generator("cuda", 0, 0))[1]["loss"])
+        torch.cuda.synchronize()
+        if i:
+            out["secs"].append(time.perf_counter() - t0)
+        else:
+            out["loss32"] = loss
+    grads = tensor_grads64(model, state, data, dp, tp)
+    if rank == 0:
+        out["grads64"] = {k: v.cpu() for k, v in grads.items()}
+    torch.save(out, os.path.join(out_dir, f"tp-{rank}.pt"))
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def tensor_phase(tmp: str) -> bool:
+    """Tensor parallelism of the full-width Tacotron-2 step on the one
+    card, against the plain step on the same batch (phase 17): (a) data 1
+    x model 1 over NCCL in this process, (b) model 2 over gloo in two
+    worker processes on ``cuda:0``. Returns ok."""
+    import os
+    import statistics
+
+    from nspeech_tpu_torch.config import load_config
+    from nspeech_tpu_torch.models.tacotron2 import Tacotron2
+    from nspeech_tpu_torch.parallel.mesh import init_distributed
+    from nspeech_tpu_torch.parallel.tensor import shard_train_state
+    from nspeech_tpu_torch.train.loop import (build_tacotron_train_step,
+                                              step_generator)
+
+    card = card_line()
+    ok = True
+    model, opt, sched, state, data = tensor_setup()
+    plain = build_tacotron_train_step(model, opt, sched)
+    loss_plain = float(plain(state, data, step_generator("cuda", 0, 0))[1]["loss"])
+    g_plain = tensor_grads64(model, state, data)
+
+    # (a) data 1 x model 1 over NCCL
+    dp, tp = init_distributed("cuda", rank=0, world_size=1,
+                              init_method=f"tcp://127.0.0.1:{free_port()}",
+                              model_parallel=1)
+    backend = torch.distributed.get_backend(tp.group)
+    local = shard_train_state(state, tp)
+    sharded = build_tacotron_train_step(model, opt, sched, dp=dp, tp=tp)
+    loss_tp = float(sharded(local, data, step_generator("cuda", 0, 0))[1]["loss"])
+    gap = grad_gap(g_plain, tensor_grads64(model, state, data, dp, tp))
+    model16 = Tacotron2(load_config("taco2").parse(BF16))
+    loss16 = {name: float(build_tacotron_train_step(
+        model16, opt, sched, dp=d, tp=t)(st, data, step_generator("cuda", 0, 0))[1]["loss"])
+        for name, d, t, st in (("plain", None, None, state), ("tp", dp, tp, local))}
+    gap16 = rel_err(loss16["plain"], loss16["tp"])
+    secs = turns({"plain": lambda: float(plain(state, data, step_generator(
+        "cuda", 0, 0))[1]["loss"]), "tp": lambda: float(sharded(
+            local, data, step_generator("cuda", 0, 0))[1]["loss"])}, TURN_STEPS)
+    torch.distributed.destroy_process_group()
+    good = (backend == "nccl" and rel_err(loss_plain, loss_tp) <= STEP_LOSS_TOL
+            and gap <= STEP_GRAD_TOL and np.isfinite(loss16["tp"])
+            and gap16 <= TP_BF16_TOL)
+    ok &= good
+    print(f"tensor taco2 step, data 1 x model 1 ({backend}, batch 32, T_out 105, "
+          f"dropout 0.5 from one generator): loss {loss_tp:.7f} vs plain "
+          f"{loss_plain:.7f} (rel {rel_err(loss_plain, loss_tp):.2e}, tol "
+          f"{STEP_LOSS_TOL}); gathered float64 gradient worst leaf {gap:.2e} (tol "
+          f"{STEP_GRAD_TOL}); bf16 loss {loss16['tp']:.5f} vs plain bf16 "
+          f"{loss16['plain']:.5f} (rel {gap16:.2e}, tol {TP_BF16_TOL}); warm sec/step "
+          f"in turns plain, tp, tp, plain: plain median "
+          f"{statistics.median(secs['plain']):.4f} "
+          f"({', '.join(f'{x:.4f}' for x in secs['plain'])}), tp median "
+          f"{statistics.median(secs['tp']):.4f} "
+          f"({', '.join(f'{x:.4f}' for x in secs['tp'])}) -> "
+          f"{'ok' if good else 'FAIL'} [{card}]")
+    del local, sharded, model16
+
+    # (b) model 2: two gloo ranks on cuda:0
+    root = os.path.dirname(os.path.abspath(__file__))
+    out_dir = os.path.join(tmp, "tensor")
+    os.makedirs(out_dir, exist_ok=True)
+    port = free_port()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                               "--tensor-worker", str(r), str(port), out_dir],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True, cwd=root) for r in range(2)]
+    try:
+        logs = [p.communicate(timeout=TP_TIMEOUT)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    if any(p.returncode for p in procs):
+        for r, log in enumerate(logs):
+            print(f"tensor worker {r} (exit {procs[r].returncode}):\n{log[-3000:]}")
+        print(f"tensor taco2 step, data 1 x model 2 (gloo on cuda:0) -> FAIL [{card}]")
+        return False
+    outs = [torch.load(os.path.join(out_dir, f"tp-{r}.pt"), weights_only=False)
+            for r in range(2)]
+    gap = grad_gap(g_plain, outs[0]["grads64"])
+    losses = [o["loss32"] for o in outs]
+    worst = max(rel_err(loss_plain, x) for x in losses)
+    good = (all(o["backend"] == "gloo" for o in outs) and losses[0] == losses[1]
+            and worst <= STEP_LOSS_TOL and gap <= STEP_GRAD_TOL)
+    ok &= good
+    print(f"tensor taco2 step, data 1 x model 2 (gloo on cuda:0, two processes, "
+          f"batch 32, T_out 105, dropout 0.5): losses {losses[0]:.7f}, "
+          f"{losses[1]:.7f} vs plain {loss_plain:.7f} (rel {worst:.2e}, tol "
+          f"{STEP_LOSS_TOL}); gathered float64 gradient worst leaf {gap:.2e} (tol "
+          f"{STEP_GRAD_TOL}); warm sec/step rank 0 "
+          f"{', '.join(f'{x:.4f}' for x in outs[0]['secs'])}, rank 1 "
+          f"{', '.join(f'{x:.4f}' for x in outs[1]['secs'])}; {wall:.1f} s wall "
+          f"with start-up -> {'ok' if good else 'FAIL'} [{card}]")
+    return ok
+
+
 def loader_phase(tmp: str) -> bool:
     """The C++ audio loader built with this machine's g++: a seeded 5 s
     WAV at 22,050 Hz (resampled to 20,000 Hz) and a 5 s FLAC at 20,000 Hz
@@ -2845,6 +3038,7 @@ def main() -> int:
         record["launches"] += one
         parallel_ok, one = phase(parallel_phase, tmp)
         record["launches"] += one
+        tensor_ok = phase(tensor_phase, tmp)
     print(f"smoke took {time.perf_counter() - start:.1f} s after the card line")
     for rec in (record, carried, primed):
         for form, ms, bound in rec.pop("per_sample"):
@@ -2854,7 +3048,7 @@ def main() -> int:
     if not (record["checked"] and carried["checked"] and primed["checked"]
             and e2e_ok and stream_ok and taco1_ok and server_ok and cli_ok
             and train_ok and wn_ok and bf16_ok and loader_ok and import_ok
-            and export_ok and parallel_ok):
+            and export_ok and parallel_ok and tensor_ok):
         print("FAIL", file=sys.stderr)
         return 1
     print(json.dumps({"ok": True, "device": {
@@ -2864,4 +3058,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--tensor-worker"]:
+        sys.exit(tensor_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
     sys.exit(main())

@@ -7,6 +7,12 @@ energy plus features of the previous alignment: a bias-free Conv1D 7x1 ->
 takes any of them from its ``attention_type`` hparam. The previous
 alignment is the state carried between decoder steps (read by
 ``location_sensitive`` and ``bah_mon``).
+
+In a tensor-parallel step (``tp``, Tacotron-2's ``location_sensitive``)
+the memory, query and location projections and ``v`` hold this model
+rank's attention dims: the rank computes its dims of the energy, the
+score is the sum of the ranks' partial dots, and the softmax, the
+alignments and the context are whole on every rank.
 """
 
 from __future__ import annotations
@@ -15,9 +21,10 @@ from typing import Optional, Tuple
 
 import torch
 
-from nspeech_tpu_torch.ops.layers import (Params, conv1d, dense, glorot_uniform,
-                                          init_conv1d, init_dense)
+from nspeech_tpu_torch.ops.layers import (Params, column_dense, conv1d,
+                                          glorot_uniform, init_conv1d, init_dense)
 from nspeech_tpu_torch.ops.policy import upcast
+from nspeech_tpu_torch.parallel import collectives
 
 ATTENTION_TYPES = (
     "bah", "bah_mon", "bah_norm", "luong", "luong_scaled", "location_sensitive",
@@ -52,9 +59,10 @@ def init_attention(rng, attention_type: str, num_units: int, memory_dim: int,
     return p
 
 
-def prepare_memory(params: Params, memory: torch.Tensor) -> torch.Tensor:
-    """[N, T_in, memory_dim] -> projected keys [N, T_in, num_units]."""
-    return dense(params["memory_layer"], memory)
+def prepare_memory(params: Params, memory: torch.Tensor, tp=None) -> torch.Tensor:
+    """[N, T_in, memory_dim] -> projected keys [N, T_in, num_units] (with
+    ``tp``, this model rank's units)."""
+    return column_dense(params["memory_layer"], memory, tp)
 
 
 def initial_alignments(attention_type: str, batch: int, t_in: int,
@@ -103,20 +111,22 @@ def _monotonic_alignments(p_choose: torch.Tensor,
 
 def attention_step(params: Params, attention_type: str, query: torch.Tensor,
                    prev_alignments: torch.Tensor, keys: torch.Tensor,
-                   values: torch.Tensor, mask: Optional[torch.Tensor]
-                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+                   values: torch.Tensor, mask: Optional[torch.Tensor],
+                   tp=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """One attention read. Returns (context [N, memory_dim], alignments
-    [N, T_in])."""
+    [N, T_in]). ``tp`` (``location_sensitive`` only): ``keys`` are this
+    model rank's units of :func:`prepare_memory`."""
     if attention_type in ("luong", "luong_scaled"):
         score = torch.einsum("nu,ntu->nt", query, keys)
         if attention_type == "luong_scaled":
             score = params["g"] * score
         alignments = _masked_softmax(score, mask)
     else:
-        q = dense(params["query_layer"], query)[:, None, :]      # [N, 1, U]
+        q = column_dense(params["query_layer"], query, tp)[:, None, :]  # [N, 1, U]
         if attention_type == "location_sensitive":
             f = conv1d(params["location_conv"], prev_alignments[:, :, None])
-            energy = torch.tanh(keys + q + dense(params["location_layer"], f))
+            energy = torch.tanh(keys + q + column_dense(params["location_layer"],
+                                                        f, tp))
         elif attention_type == "bah_norm":
             energy = torch.tanh(keys + q + params["b"])
         else:
@@ -126,6 +136,8 @@ def attention_step(params: Params, attention_type: str, query: torch.Tensor,
         else:
             v = params["v"]
         score = energy @ v
+        if tp is not None:
+            score = collectives.reduce_from_model(score, tp)
         if attention_type == "bah_mon":
             score = score + params["score_bias"]
             if mask is not None:

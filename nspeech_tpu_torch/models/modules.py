@@ -3,7 +3,9 @@ encoder and expand network) and the postnet. Port of
 ``nspeech_tpu/models/modules.py``. At inference (the default) batch norm
 uses the running statistics and each block returns its output; with
 ``is_training=True`` it uses the batch's moments and each block returns
-``(output, new_bn_state)``, as the JAX package's do.
+``(output, new_bn_state)``, as the JAX package's do. Tacotron-2's blocks
+take a ``tp`` (``ops/layers.py``): the convs over this model rank's
+output channels, the BiLSTM over its units.
 
 The CBHG keeps the reference's quirks, which define trained behaviour:
 the max-pool output is dropped (projections read the conv bank), every
@@ -67,15 +69,15 @@ def with_state(result, state, is_training: bool):
     return result if is_training else (result, state)
 
 
-def _conv_bn_stack(is_training: bool):
+def _conv_bn_stack(is_training: bool, tp=None):
     """``(conv_bn, new_states)``: a conv_bn that, in training, appends
     each layer's new BN state to ``new_states[key]`` (a dict of lists)."""
     new_states = {}
 
     def run(key, p, s, x, activation):
         if not is_training:
-            return L.conv_bn(p, s, x, activation)
-        y, ns = L.conv_bn(p, s, x, activation, True)
+            return L.conv_bn(p, s, x, activation, tp=tp)
+        y, ns = L.conv_bn(p, s, x, activation, True, tp)
         new_states.setdefault(key, []).append(ns)
         return y
 
@@ -128,18 +130,20 @@ def init_conv_and_lstm(rng, in_dim: int, conv_layers: int, conv_width: int,
 
 
 def conv_and_lstm(params, state, meta, x: torch.Tensor, lengths,
-                  is_training: bool = False, taps=None, name: str = ""):
+                  is_training: bool = False, taps=None, name: str = "",
+                  tp=None):
     """Conv+BN stack (ReLU on all but the last conv) then a BiLSTM, whose
     recurrent kernels' gradients are deferred when ``taps`` holds
-    ``name`` (``layers.bilstm_rnn``)."""
-    conv_bn, new_state = _conv_bn_stack(is_training)
+    ``name`` (``layers.bilstm_rnn``). With ``tp`` the output is this
+    model rank's units of each direction."""
+    conv_bn, new_state = _conv_bn_stack(is_training, tp)
     n = len(params["convs"])
     for i, (p, s) in enumerate(zip(params["convs"], state["convs"])):
         x = conv_bn("convs", p, s, x, torch.relu if i < n - 1 else None)
     if taps is not None and name not in taps:
         taps = None
     out = L.bilstm_rnn(params["lstm_fw"], params["lstm_bw"], x, lengths,
-                       meta["lstm_units"], taps=taps, name=name)
+                       meta["lstm_units"], taps=taps, name=name, tp=tp)
     return (out, new_state) if is_training else out
 
 
@@ -156,10 +160,11 @@ def init_postnet(rng, in_dim: int, conv_layers: int, conv_width: int,
             {"convs": conv_s})
 
 
-def postnet(params, state, x: torch.Tensor, is_training: bool = False):
+def postnet(params, state, x: torch.Tensor, is_training: bool = False,
+            tp=None):
     """Conv+BN stack (tanh on all but the last conv) then a dense back to
     the mel width: the residual added to the decoder frames."""
-    conv_bn, new_state = _conv_bn_stack(is_training)
+    conv_bn, new_state = _conv_bn_stack(is_training, tp)
     n = len(params["convs"])
     y = x
     for i, (p, s) in enumerate(zip(params["convs"], state["convs"])):

@@ -37,6 +37,7 @@ GRU_UNITS = 128   # the CBHGs' GRU width, fixed by the reference
 
 class Tacotron1:
     name = "taco1"
+    tp_rules = ()       # replicated along a model axis (parallel/tensor.py)
 
     def __init__(self, cfg: Config):
         self.cfg = cfg

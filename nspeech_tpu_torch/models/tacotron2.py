@@ -15,6 +15,14 @@ built from, so the one-shot path and the stream share one encoder, one
 decoder step and one postnet. Each entry casts the parameters (and the
 teacher frames) to ``compute_dtype`` (``ops/policy.py``); the outputs come
 out in it and :meth:`loss` computes in float32.
+
+Inside ``collectives.tensor_parallel(tp)`` :meth:`forward_train` (and
+:meth:`deferred_zero_inputs`) run on this model rank's slices of the
+weights that :data:`tp_rules` shard (``parallel/tensor.py``): the
+decoder's and the BiLSTMs' cells over the rank's units, the attention
+energy over its attention dims, the convs over its channels, the prenet,
+frame and linear projections as column and row products. The outputs,
+the alignments and the loss are whole on every model rank.
 """
 
 from __future__ import annotations
@@ -32,11 +40,14 @@ from nspeech_tpu_torch.models.tacotron import tacotron_loss
 from nspeech_tpu_torch.ops import deferred as DF
 from nspeech_tpu_torch.ops import layers as L
 from nspeech_tpu_torch.ops import policy as P
+from nspeech_tpu_torch.parallel import collectives
+from nspeech_tpu_torch.parallel.tensor import TACO2_TP_RULES
 from nspeech_tpu_torch.text.symbols import symbols
 
 
 class Tacotron2:
     name = "taco2"
+    tp_rules = TACO2_TP_RULES
 
     def __init__(self, cfg: Config):
         self.cfg = cfg
@@ -92,12 +103,14 @@ class Tacotron2:
     def _make_step(self, params, keys_mem, values, mask, spk,
                    is_training: bool = False,
                    generator: Optional[torch.Generator] = None,
-                   deferred: Optional[DF.Taps] = None):
+                   deferred: Optional[DF.Taps] = None, tp=None):
         """The decoder step ``(carry, x) -> (carry, (out, align))``. In
         training the prenet drops at ``drop_rate`` (from ``generator``)
         and attention is not windowed. With ``deferred`` (taps from
         :meth:`deferred_zero_inputs`) the three LSTM cells and the frame
-        projection defer their weight gradients (``ops/deferred.py``)."""
+        projection defer their weight gradients (``ops/deferred.py``).
+        With ``tp`` the carry's cell states are this model rank's units,
+        its ``h`` whole."""
         cfg = self.cfg
         drop = cfg.drop_rate if is_training else 0.0
         win_fwd = 0 if is_training else int(cfg.get("attention_win_fwd", 0))
@@ -108,28 +121,30 @@ class Tacotron2:
         def lstm(name, x, state):
             if deferred is not None:
                 return DF.lstm_cell_deferred(params[name], x, state, deferred,
-                                             name)
-            return L.lstm_cell(params[name], x, state)
+                                             name, tp=tp)
+            return L.lstm_cell(params[name], x, state, tp=tp)
 
         def step(carry, x):
             (c1, h1), context, align, (c2, h2), (c3, h3) = carry
             pre = L.prenet(params["decoder_prenet"],
-                           torch.cat([x, context], dim=-1), drop, generator)
+                           torch.cat([x, context], dim=-1), drop, generator, tp)
             if spk_pre is not None:
                 pre = torch.cat([pre, spk_pre], dim=-1)
-            out1, (c1, h1) = lstm("attn_lstm", pre, (c1, h1))
+            # each cell's output is its state's h, whole; under tp the
+            # frame projection reads lstm2's output, the rank's units
+            _, (c1, h1) = lstm("attn_lstm", pre, (c1, h1))
             m = A.window_mask(align, mask, win_back, win_fwd) if win_fwd > 0 else mask
             context, align = A.attention_step(params["attention"],
-                                              "location_sensitive", out1, align,
-                                              keys_mem, values, m)
-            out2, (c2, h2) = lstm("lstm1", torch.cat([out1, context], dim=-1),
-                                  (c2, h2))
-            out3, (c3, h3) = lstm("lstm2", out2, (c3, h3))
+                                              "location_sensitive", h1, align,
+                                              keys_mem, values, m, tp)
+            _, (c2, h2) = lstm("lstm1", torch.cat([h1, context], dim=-1),
+                               (c2, h2))
+            out3, (c3, h3) = lstm("lstm2", h2, (c3, h3))
             if deferred is not None:
                 out = DF.dense_deferred(params["frame_proj"], out3, deferred,
-                                        "frame_proj")
+                                        "frame_proj", tp=tp)
             else:
-                out = L.dense(params["frame_proj"], out3)
+                out = L.row_dense(params["frame_proj"], out3, tp)
             return ((c1, h1), context, align, (c2, h2), (c3, h3)), (out, align)
 
         return step
@@ -142,18 +157,23 @@ class Tacotron2:
         over ``steps`` decoder steps; with ``t_in`` / ``t_out`` also the
         recurrent kernels of the encoder / expand BiLSTM (loops at text
         and frame rate). Named and shaped as the JAX package's zero
-        injections."""
+        injections; inside ``collectives.tensor_parallel`` the cells' at
+        this model rank's units."""
         cfg = self.cfg
+        tp = collectives.current_tp()
+        split = 1 if tp is None else tp.world
         shapes = {
-            "attn_lstm": (steps, batch, 4 * cfg.attention_dim),
-            "lstm1": (steps, batch, 4 * cfg.decoder_lstm_units),
-            "lstm2": (steps, batch, 4 * cfg.decoder_lstm_units),
+            "attn_lstm": (steps, batch, 4 * cfg.attention_dim // split),
+            "lstm1": (steps, batch, 4 * cfg.decoder_lstm_units // split),
+            "lstm2": (steps, batch, 4 * cfg.decoder_lstm_units // split),
             "frame_proj": (steps, batch, cfg.num_mels * cfg.outputs_per_step),
         }
         if t_in is not None:
-            shapes["encoder_lstm"] = (t_in, 2 * batch, 4 * cfg.encoder_lstm_units)
+            shapes["encoder_lstm"] = (t_in, 2 * batch,
+                                      4 * cfg.encoder_lstm_units // split)
         if t_out is not None:
-            shapes["expand_lstm"] = (t_out, 2 * batch, 4 * cfg.expand_lstm_units)
+            shapes["expand_lstm"] = (t_out, 2 * batch,
+                                     4 * cfg.expand_lstm_units // split)
         return DF.Taps(shapes)
 
     def deferred_merge_grads(self, grads, taps: DF.Taps):
@@ -180,26 +200,31 @@ class Tacotron2:
     def _cast(self, tree):
         return P.entry_cast(tree, P.compute_dtype(self.cfg))
 
-    def _decoder_carry0(self, batch: int, t_in: int, device):
+    def _decoder_carry0(self, batch: int, t_in: int, device, tp=None):
+        """The decoder's zero carry; with ``tp`` the cell states at this
+        model rank's units."""
         cfg = self.cfg
         dtype = P.carry_dtype(cfg)
+        split = 1 if tp is None else tp.world
 
         def z(*shape):
             return torch.zeros(*shape, device=device, dtype=dtype)
 
-        return ((z(batch, cfg.attention_dim), z(batch, cfg.attention_dim)),
-                z(batch, self._memory_dim),
+        def cell(units):
+            return z(batch, units // split), z(batch, units)
+
+        return (cell(cfg.attention_dim), z(batch, self._memory_dim),
                 A.initial_alignments("location_sensitive", batch, t_in, device,
                                      dtype),
-                (z(batch, cfg.decoder_lstm_units), z(batch, cfg.decoder_lstm_units)),
-                (z(batch, cfg.decoder_lstm_units), z(batch, cfg.decoder_lstm_units)))
+                cell(cfg.decoder_lstm_units), cell(cfg.decoder_lstm_units))
 
     # -- streaming hooks ------------------------------------------------------
 
     def _encode(self, params, state, text_inputs, input_lengths, speaker_ids,
-                is_training: bool, deferred: Optional[DF.Taps] = None):
-        """``(step_ctx, encoder BN state)``: the attention keys, memory,
-        mask and speaker embedding the decoder step reads."""
+                is_training: bool, deferred: Optional[DF.Taps] = None, tp=None):
+        """``(step_ctx, encoder BN state)``: the attention keys (with
+        ``tp``, this model rank's units), memory, mask and speaker
+        embedding the decoder step reads."""
         t_in = text_inputs.shape[1]
         embedded = L.embedding(params["embedding"], text_inputs)
         spk = None
@@ -208,9 +233,10 @@ class Tacotron2:
         enc_out, enc_state = M.with_state(
             M.conv_and_lstm(params["encoder"], state["encoder"], self._enc_meta,
                             embedded, input_lengths, is_training,
-                            deferred, "encoder_lstm"),
+                            deferred, "encoder_lstm", tp),
             state["encoder"], is_training)
-        keys_mem = A.prepare_memory(params["attention"], enc_out)
+        enc_out = L.gather_blocks(enc_out, tp, 2)
+        keys_mem = A.prepare_memory(params["attention"], enc_out, tp)
         # max(len, 1) keeps the softmax finite for length-0 padding rows
         mask = (torch.arange(t_in, device=text_inputs.device)[None, :]
                 < torch.clamp(input_lengths, min=1)[:, None])
@@ -288,32 +314,34 @@ class Tacotron2:
         then completes autograd's gradient."""
         cfg = self.cfg
         n, t_in = text_inputs.shape
+        tp = collectives.current_tp()
         # the policy's entry: float32 masters stay outside, and autograd
         # returns float32 gradients to them through the cast
         params = self._cast(params)
         mel_targets = self._cast(mel_targets)
         ctx, enc_state = self._encode(params, state, text_inputs,
                                       input_lengths, speaker_ids, is_training,
-                                      deferred)
+                                      deferred, tp)
         step = self._make_step(params, *ctx, is_training=is_training,
-                               generator=generator, deferred=deferred)
+                               generator=generator, deferred=deferred, tp=tp)
         ss = float(cfg.get("scheduled_sampling_ratio", 0.0)) if is_training else 0.0
         outs, aligns = D.scan_teacher(
-            step, self._decoder_carry0(n, t_in, text_inputs.device),
+            step, self._decoder_carry0(n, t_in, text_inputs.device, tp),
             D.teacher_frames(mel_targets, cfg.outputs_per_step), ss, generator)
         decoder_out = D.assemble_outputs(outs, cfg.num_mels)
         alignments = D.assemble_alignments(aligns)
         residual, post_state = M.with_state(
             M.postnet(params["postnet"], state["postnet"], decoder_out,
-                      is_training), state["postnet"], is_training)
+                      is_training, tp), state["postnet"], is_training)
         mel_outputs = decoder_out + residual
         expand_out, expand_state = M.with_state(
             M.conv_and_lstm(params["expand"], state["expand"],
                             self._expand_meta, mel_outputs, None, is_training,
-                            deferred, "expand_lstm"),
+                            deferred, "expand_lstm", tp),
             state["expand"], is_training)
         outputs = {"mel_outputs": mel_outputs,
-                   "linear_outputs": L.dense(params["linear_proj"], expand_out),
+                   "linear_outputs": L.row_dense(params["linear_proj"],
+                                                 expand_out, tp),
                    "alignments": alignments}
         guided = D.maybe_guided_attention(cfg, alignments, input_lengths,
                                           mel_targets, is_training)

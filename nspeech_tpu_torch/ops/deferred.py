@@ -20,6 +20,12 @@ card's time). The deferred form:
 
 The gradient is the same chain rule, reassociated: it equals autograd's
 up to the order of its sums.
+
+In a tensor-parallel step (``tp``) the taps hold this model rank's
+widths: a column-parallel cell taps its units' columns of ``dz`` with the
+whole input, the row-parallel frame projection taps the whole ``dz``
+with the rank's input columns, so :func:`matmul_grads` and
+:func:`bilstm_wh_grads` give each rank its slice of the weight gradient.
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ from typing import Dict, Tuple
 import torch
 
 from nspeech_tpu_torch.ops import layers as L
+from nspeech_tpu_torch.parallel import collectives
 
 Params = Dict[str, torch.Tensor]
 
@@ -91,9 +98,12 @@ class Taps:
 
 
 def dense_deferred(params: Params, x: torch.Tensor, taps: Taps, name: str,
-                   activation=None) -> torch.Tensor:
-    """``layers.dense`` with the kernel's and bias's gradients deferred."""
+                   activation=None, tp=None) -> torch.Tensor:
+    """``layers.dense`` with the kernel's and bias's gradients deferred;
+    with ``tp``, ``layers.row_dense``."""
     y = L.acc_dot(x, params["kernel"].detach())
+    if tp is not None:
+        y = collectives.reduce_from_model(y, tp)
     if "bias" in params:
         y = y + params["bias"].detach()
     y = taps.tap(name, y, x)
@@ -102,14 +112,15 @@ def dense_deferred(params: Params, x: torch.Tensor, taps: Taps, name: str,
 
 def lstm_cell_deferred(params: Params, x: torch.Tensor,
                        state: Tuple[torch.Tensor, torch.Tensor], taps: Taps,
-                       name: str, forget_bias: float = 1.0):
-    """``layers.lstm_cell`` with deferred weight gradients: returns
-    ``(h, (c, h))``."""
+                       name: str, forget_bias: float = 1.0, tp=None):
+    """``layers.lstm_cell`` (with ``tp``: its column-parallel form) with
+    deferred weight gradients: returns ``(h, (c, h))``."""
     c, h = state
     xh = torch.cat([x, h], dim=-1)
-    pre = L.acc_dot(xh, params["kernel"].detach()) + params["bias"].detach()
+    xin = xh if tp is None else collectives.copy_to_model(xh, tp)
+    pre = L.acc_dot(xin, params["kernel"].detach()) + params["bias"].detach()
     new_c, new_h = L._lstm_gates(taps.tap(name, pre, xh), c, forget_bias)
-    return new_h, (new_c, new_h)
+    return new_h, (new_c, L.gather_blocks(new_h, tp))
 
 
 def gru_cell_deferred(params: Params, x: torch.Tensor, h: torch.Tensor,

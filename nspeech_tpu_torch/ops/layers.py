@@ -11,6 +11,15 @@ prenet have a training mode (batch moments and their running update;
 inverted dropout from a ``torch.Generator``); without it they are the
 inference functions.
 
+Inside a tensor-parallel step (``collectives.tensor_parallel``) the
+layers that take a ``tp`` (a ``parallel.mesh.TensorParallel``) hold model
+rank ``tp.rank``'s slice of their weights, as ``parallel/tensor.py``
+places them, and exchange activations with Megatron's operators: a
+column-parallel product reads its input whole and returns this rank's
+columns, a row-parallel one reads this rank's columns and sums the
+partial products over the model ranks. With ``tp`` None each is the
+plain layer.
+
 Under the bf16 compute policy (``ops/policy.py``) every layer keeps the
 dtype it is given: products go through :func:`acc_dot` and
 :func:`acc_einsum` (float32 accumulation, one rounding), batch norm
@@ -162,6 +171,37 @@ def dense(params: Params, x: torch.Tensor, activation=None) -> torch.Tensor:
     return activation(y) if activation is not None else y
 
 
+def column_dense(params: Params, x: torch.Tensor, tp, activation=None) -> torch.Tensor:
+    """:func:`dense` whose kernel and bias hold this model rank's output
+    columns: ``x`` is whole, the result this rank's columns."""
+    if tp is not None:
+        x = collectives.copy_to_model(x, tp)
+    return dense(params, x, activation)
+
+
+def row_dense(params: Params, x: torch.Tensor, tp, activation=None) -> torch.Tensor:
+    """:func:`dense` whose kernel holds this model rank's input rows:
+    ``x`` is this rank's columns of the input, the partial products are
+    summed over the model ranks and the (whole) bias is added once,
+    after the sum."""
+    if tp is None:
+        return dense(params, x, activation)
+    y = collectives.reduce_from_model(acc_dot(x, params["kernel"]), tp)
+    if "bias" in params:
+        y = y + params["bias"]
+    return activation(y) if activation is not None else y
+
+
+def gather_blocks(x: torch.Tensor, tp, blocks: int = 1) -> torch.Tensor:
+    """The whole last axis of ``x`` from every model rank's slice of each
+    of its ``blocks`` packed blocks (``x`` itself with ``tp`` None)."""
+    if tp is None:
+        return x
+    lead = x.shape[:-1]
+    y = collectives.gather_from_model(x.reshape(*lead, blocks, -1), tp)
+    return y.reshape(*lead, -1)
+
+
 def embedding(params: Params, ids: torch.Tensor) -> torch.Tensor:
     return params["table"][ids]
 
@@ -211,30 +251,46 @@ def batch_norm(params: Params, state: Params, x: torch.Tensor,
 
 
 def conv_bn(params: Params, state: Params, x: torch.Tensor, activation,
-            is_training: bool = False):
+            is_training: bool = False, tp=None):
     """conv -> activation -> batch norm (the reference's order). Returns y
-    at inference, ``(y, {"bn": new_state})`` in training."""
+    at inference, ``(y, {"bn": new_state})`` in training. With ``tp`` the
+    conv and the batch norm's scale and offset hold this model rank's
+    output channels: the rank normalizes its channels (their moments over
+    the data ranks), and the output and the running statistics are
+    gathered whole."""
+    bn_state = state["bn"]
+    if tp is not None:
+        x = collectives.copy_to_model(x, tp)
+        bn_state = {k: collectives.model_slice(v, tp) for k, v in bn_state.items()}
     y = conv1d(params["conv"], x)
     if activation is not None:
         y = activation(y)
     if not is_training:
-        return batch_norm(params["bn"], state["bn"], y)
-    y, bn = batch_norm(params["bn"], state["bn"], y, True)
-    return y, {"bn": bn}
+        return gather_blocks(batch_norm(params["bn"], bn_state, y), tp)
+    y, bn = batch_norm(params["bn"], bn_state, y, True)
+    if tp is not None:
+        bn = {k: collectives.all_gather_last(v, tp) for k, v in bn.items()}
+    return gather_blocks(y, tp), {"bn": bn}
 
 
 def prenet(params: Params, x: torch.Tensor, drop_rate: float = 0.0,
-           generator: Optional[torch.Generator] = None) -> torch.Tensor:
+           generator: Optional[torch.Generator] = None, tp=None) -> torch.Tensor:
     """Stacked dense+relu; with ``drop_rate`` > 0 and a ``generator``,
     inverted dropout after each layer (keep with probability
     ``1 - drop_rate``, scale kept values by ``1 / (1 - drop_rate)``). In a
     data-parallel step the mask is this rank's rows of the global batch's
-    (``collectives.rand_rows``)."""
-    for layer in params["layers"]:
-        x = dense(layer, x, torch.relu)
+    (``collectives.rand_rows``). With ``tp`` the two layers are a column-
+    then a row-parallel product (Tacotron-2's prenet), and the first
+    layer's mask is the whole mask's columns of this model rank."""
+    for i, layer in enumerate(params["layers"]):
+        sharded = tp is not None and i == 0
+        x = (column_dense if sharded else row_dense)(layer, x, tp, torch.relu)
         if drop_rate > 0.0 and generator is not None:
-            keep = collectives.rand_rows(x.shape, generator,
+            width = x.shape[-1] * (tp.world if sharded else 1)
+            keep = collectives.rand_rows(x.shape[:-1] + (width,), generator,
                                          x.device) < 1.0 - drop_rate
+            if sharded:
+                keep = collectives.model_slice(keep, tp)
             x = torch.where(keep, x / (1.0 - drop_rate), torch.zeros_like(x))
     return x
 
@@ -335,13 +391,19 @@ def _lstm_gates(z: torch.Tensor, c: torch.Tensor, forget_bias: float):
 
 def lstm_cell(params: Params, x: torch.Tensor,
               state: Tuple[torch.Tensor, torch.Tensor],
-              forget_bias: float = 1.0):
+              forget_bias: float = 1.0, tp=None):
     """One [x, h] -> (i, g, f, o) LSTM step; the forget bias is added at
-    run time. Returns (h, (c, h))."""
+    run time. Returns (h, (c, h)). With ``tp`` the kernel and bias hold
+    this model rank's units of each gate: ``c`` and the returned ``h`` are
+    the rank's units, the state's ``h`` the whole (gathered) one that the
+    next step reads."""
     c, h = state
-    z = acc_dot(torch.cat([x, h], dim=-1), params["kernel"]) + params["bias"]
+    xh = torch.cat([x, h], dim=-1)
+    if tp is not None:
+        xh = collectives.copy_to_model(xh, tp)
+    z = acc_dot(xh, params["kernel"]) + params["bias"]
     new_c, new_h = _lstm_gates(z, c, forget_bias)
-    return new_h, (new_c, new_h)
+    return new_h, (new_c, gather_blocks(new_h, tp))
 
 
 def reverse_sequence(x: torch.Tensor, lengths: Optional[torch.Tensor]) -> torch.Tensor:
@@ -359,7 +421,7 @@ def reverse_sequence(x: torch.Tensor, lengths: Optional[torch.Tensor]) -> torch.
 def bilstm_rnn(params_fw: Params, params_bw: Params, x: torch.Tensor,
                lengths: Optional[torch.Tensor], units: int,
                forget_bias: float = 1.0, taps=None,
-               name: str = "") -> torch.Tensor:
+               name: str = "", tp=None) -> torch.Tensor:
     """Bidirectional LSTM over [N, T, C] -> [N, T, 2*units].
 
     Both directions step together (the reversed copy is stacked on the
@@ -371,27 +433,38 @@ def bilstm_rnn(params_fw: Params, params_bw: Params, x: torch.Tensor,
     defers the recurrent kernels' gradients: the ``h @ wh`` rows enter
     the loop detached, each step's pre-activation is tapped with the
     entry state as its input, and ``deferred.bilstm_wh_grads`` recovers
-    them after the backward pass."""
+    them after the backward pass.
+
+    With ``tp`` the kernels and biases hold this model rank's units of
+    each gate: the rank steps its units, gathers the whole ``h`` once per
+    step for the recurrent product, and returns its units of each
+    direction, ``[N, T, 2 * units / tp.world]`` (``gather_blocks(y, tp,
+    2)`` is the whole output)."""
     N, T, C = x.shape
     x2 = torch.cat([x, reverse_sequence(x, lengths)], dim=0)      # [2N, T, C]
+    local = units
+    if tp is not None:
+        x2 = collectives.copy_to_model(x2, tp)
+        local = units // tp.world
     wx = torch.stack([params_fw["kernel"][:C], params_bw["kernel"][:C]])
     wh = torch.stack([params_fw["kernel"][C:], params_bw["kernel"][C:]])
     if taps is not None:
         wh = wh.detach()
     b = torch.stack([params_fw["bias"], params_bw["bias"]])        # [2, 4H]
     xz = (acc_einsum("gntc,gcz->gntz", x2.reshape(2, N, T, C), wx)
-          + b[:, None, None]).reshape(2 * N, T, 4 * units)
+          + b[:, None, None]).reshape(2 * N, T, 4 * local)
     mask = _length_mask(lengths, T, x.device)
     if mask is not None:
         mask = torch.cat([mask, mask], dim=0)                       # [2N, T, 1]
-    c = x.new_zeros(2 * N, units)
-    h = x.new_zeros(2 * N, units)
+    c = x.new_zeros(2 * N, local)
+    h = x.new_zeros(2 * N, local)
+    whole = x.new_zeros(2 * N, units)        # h of every unit
     outs = []
     for t in range(T):
-        hz = torch.bmm(h.reshape(2, N, units), wh).reshape(2 * N, 4 * units)
+        hz = torch.bmm(whole.reshape(2, N, units), wh).reshape(2 * N, 4 * local)
         pre = xz[:, t] + hz
         if taps is not None:
-            pre = taps.tap(name, pre, h)
+            pre = taps.tap(name, pre, whole)
         new_c, new_h = _lstm_gates(pre, c, forget_bias)
         out = new_h
         if mask is not None:
@@ -400,6 +473,8 @@ def bilstm_rnn(params_fw: Params, params_bw: Params, x: torch.Tensor,
             new_h = torch.where(mt, new_h, h)
             out = torch.where(mt, out, torch.zeros_like(out))
         c, h = new_c, new_h
+        whole = (h if tp is None else collectives.copy_to_model(
+            gather_blocks(h, tp), tp))
         outs.append(out)
     ys = torch.stack(outs, dim=1)                                   # [2N, T, H]
     return torch.cat([ys[:N], reverse_sequence(ys[N:], lengths)], dim=-1)

@@ -1,5 +1,5 @@
-"""The collectives of a data-parallel training step, and the rank its
-forward runs on.
+"""The collectives of a data-parallel and a tensor-parallel training
+step, and the ranks its forward runs on.
 
 Under GSPMD a JAX step sharded over the batch computes what the plain
 step computes on the whole batch: batch-norm moments, a loss whose
@@ -20,6 +20,17 @@ After the backward pass :func:`average_grads` and
 over equal shapes on every rank, so their average is the global mean).
 Outside :func:`data_parallel` nothing here runs and the step is the plain
 one, bit for bit.
+
+Inside :func:`tensor_parallel` (a ``parallel.mesh.TensorParallel``) the
+layers that ``parallel/tensor.py``'s rules shard hold this rank's slice
+of their weights, and the model code reads :func:`current_tp` and moves
+activations between the model ranks with Megatron's three operators:
+:func:`copy_to_model` in front of a column-parallel product (its input
+is whole on every rank; the backward sums the ranks' partial input
+gradients), :func:`reduce_from_model` after a row-parallel one (the
+forward sums the ranks' partial products) and :func:`gather_from_model`
+where a sharded activation becomes whole. Everything else is computed
+whole on every model rank, and so is its gradient.
 """
 
 from __future__ import annotations
@@ -54,6 +65,112 @@ def current():
     """The ``DataParallel`` of the enclosing :func:`data_parallel`, or
     None."""
     return getattr(_local, "dp", None)
+
+
+@contextlib.contextmanager
+def tensor_parallel(tp):
+    """Run the enclosed forward and backward as rank ``tp.rank`` of the
+    ``tp.world`` model ranks (a ``parallel.mesh.TensorParallel``); None
+    runs them whole."""
+    saved = getattr(_local, "tp", None)
+    _local.tp = tp
+    try:
+        yield
+    finally:
+        _local.tp = saved
+
+
+def current_tp():
+    """The ``TensorParallel`` of the enclosing :func:`tensor_parallel`, or
+    None."""
+    return getattr(_local, "tp", None)
+
+
+class _CopyToModel(torch.autograd.Function):
+    """Identity; the backward sums the gradient over the model ranks."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous().clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """Sum over the model ranks; the backward passes the gradient (every
+    rank reads the whole sum)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        y = x.contiguous().clone()
+        dist.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def model_slice(x: torch.Tensor, tp) -> torch.Tensor:
+    """This model rank's contiguous slice of the last axis of ``x``."""
+    width = x.shape[-1] // tp.world
+    return x[..., tp.rank * width:(tp.rank + 1) * width]
+
+
+def all_gather_last(x: torch.Tensor, tp) -> torch.Tensor:
+    """The ranks' ``x`` concatenated on the last axis, in rank order (no
+    gradient)."""
+    x = x.contiguous()
+    pieces = [torch.empty_like(x) for _ in range(tp.world)]
+    dist.all_gather(pieces, x, group=tp.group)
+    return torch.cat(pieces, dim=-1)
+
+
+class _GatherFromModel(torch.autograd.Function):
+    """All-gather on the last axis; the backward keeps this rank's
+    slice."""
+
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.rank, ctx.width = tp.rank, x.shape[-1]
+        return all_gather_last(x, tp)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.narrow(-1, ctx.rank * ctx.width, ctx.width), None
+
+
+def copy_to_model(x: torch.Tensor, tp) -> torch.Tensor:
+    """The input of a column-parallel product: ``x`` itself, whose
+    gradient is summed over the model ranks of ``tp``."""
+    return _CopyToModel.apply(x, tp.group)
+
+
+def reduce_from_model(x: torch.Tensor, tp) -> torch.Tensor:
+    """The sum over the model ranks of ``tp`` of their partial ``x``."""
+    return _ReduceFromModel.apply(x, tp.group)
+
+
+def gather_from_model(x: torch.Tensor, tp) -> torch.Tensor:
+    """The ranks' slices ``x`` concatenated on the last axis."""
+    return _GatherFromModel.apply(x, tp)
+
+
+def leaf_squares(leaves: List[torch.Tensor], sharded: List[bool], tp) -> torch.Tensor:
+    """Each leaf's sum of squares in the whole tree that ``leaves`` are
+    this rank's slices of: a ``sharded`` leaf's squares are summed over the
+    model ranks of ``tp``, a replicated leaf's counted once (one
+    all-reduce)."""
+    sq = torch.stack([torch.sum(torch.square(x)) for x in leaves])
+    mask = torch.tensor(sharded, dtype=torch.bool, device=sq.device)
+    part = torch.where(mask, sq, torch.zeros_like(sq))
+    dist.all_reduce(part, group=tp.group)
+    return torch.where(mask, part, sq)
 
 
 class _AllReduceSum(torch.autograd.Function):

@@ -19,6 +19,10 @@ point uses one of them:
   length-sharded forms (``parallel/timeshard.py``,
   ``parallel/lengthshard.py``). :func:`shard_batch` with a
   :class:`DataParallel` gives this rank its rows of a global batch.
+  With ``model_parallel=M`` the processes form a (data D x model M)
+  grid, as JAX's ``make_mesh`` lays devices out: each rank has a
+  :class:`DataParallel` over its model column and a
+  :class:`TensorParallel` over its data row (``parallel/tensor.py``).
 """
 
 from __future__ import annotations
@@ -89,6 +93,17 @@ class DataParallel(NamedTuple):
         return slice(self.rank * per, (self.rank + 1) * per)
 
 
+class TensorParallel(NamedTuple):
+    """This process's place on the ``model`` axis: rank ``rank`` of the
+    ``world`` ranks that share one data shard, training on ``device``,
+    each holding its slice of the sharded weights
+    (``parallel/tensor.py``). ``group`` is their process group."""
+    rank: int
+    world: int
+    device: torch.device
+    group: Optional[object] = None
+
+
 def distributed_env() -> bool:
     """Whether this process was started by ``torchrun`` (or another
     launcher that sets ``RANK`` and ``WORLD_SIZE``)."""
@@ -97,14 +112,23 @@ def distributed_env() -> bool:
 
 def init_distributed(device="cuda", rank: Optional[int] = None,
                      world_size: Optional[int] = None,
-                     init_method: Optional[str] = None) -> DataParallel:
+                     init_method: Optional[str] = None,
+                     model_parallel: Optional[int] = None):
     """Join (or create) the default process group and return this
     process's :class:`DataParallel`. ``rank``, ``world_size`` and the
     device index default to ``torchrun``'s ``RANK``, ``WORLD_SIZE`` and
     ``LOCAL_RANK``; ``init_method`` to ``env://`` (``MASTER_ADDR`` and
     ``MASTER_PORT``), or pass ``tcp://127.0.0.1:<port>``. NCCL on
     ``cuda`` (the process trains on ``cuda:LOCAL_RANK``), gloo on the
-    CPU."""
+    CPU; a group that already exists is joined as it is, whatever its
+    backend.
+
+    With ``model_parallel=M`` returns ``(dp, tp)`` on a (data D x model
+    M) grid of the ``D * M`` ranks, laid out as JAX's ``make_mesh`` lays
+    out devices: rank ``d * M + m`` is data shard ``d``, model rank
+    ``m``. ``dp`` (rank d of D) is over the ranks of model column m,
+    ``tp`` (:class:`TensorParallel`, rank m of M) over those of data row
+    d; every rank creates every group, in one order."""
     rank = int(os.environ["RANK"]) if rank is None else rank
     world = int(os.environ["WORLD_SIZE"]) if world_size is None else world_size
     device = torch.device(device)
@@ -117,7 +141,17 @@ def init_distributed(device="cuda", rank: Optional[int] = None,
         dist.init_process_group("nccl" if device.type == "cuda" else "gloo",
                                 init_method=init_method or "env://",
                                 rank=rank, world_size=world, **kwargs)
-    return DataParallel(rank, world, device)
+    if model_parallel is None:
+        return DataParallel(rank, world, device)
+    m_world = model_parallel
+    if world % m_world:
+        raise ValueError(f"{world} ranks not divisible by model_parallel={m_world}")
+    grid = np.arange(world).reshape(world // m_world, m_world)
+    d, m = divmod(rank, m_world)
+    data_groups = [dist.new_group(grid[:, j].tolist()) for j in range(m_world)]
+    model_groups = [dist.new_group(row.tolist()) for row in grid]
+    return (DataParallel(d, world // m_world, device, data_groups[m]),
+            TensorParallel(m, m_world, device, model_groups[d]))
 
 
 def initialize_multihost(coordinator_address: Optional[str] = None,

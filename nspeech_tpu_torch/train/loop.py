@@ -11,7 +11,11 @@ decoder step. A feeder batch (numpy) reaches the device through pinned
 host memory; a batch already on the device (``data/device_cache.py``)
 passes through. With a ``parallel.mesh.DataParallel`` (``dp``) a step
 is the data-parallel one: each rank runs the plain step on its rows and
-leaves with the plain step's result on the global batch.
+leaves with the plain step's result on the global batch. With a
+``parallel.mesh.TensorParallel`` (``tp``) the Tacotron step is also
+tensor-parallel: the state holds this model rank's slices
+(``parallel/tensor.py`` ``shard_train_state``) and the step leaves with
+this rank's slices of the plain step's result.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ import numpy as np
 import torch
 
 from nspeech_tpu_torch.parallel import collectives
+from nspeech_tpu_torch.parallel.tensor import sharded_leaves
 from nspeech_tpu_torch.train.optim import apply_updates, global_norm
 from nspeech_tpu_torch.utils.tree import tree_leaves, tree_map
 
@@ -135,7 +140,7 @@ def _grads(loss: torch.Tensor, params):
 
 def tacotron_grads(model, state: TrainState, batch: TacotronBatch,
                    generator: Optional[torch.Generator],
-                   deferred_dw: Optional[bool] = None, dp=None):
+                   deferred_dw: Optional[bool] = None, dp=None, tp=None):
     """(grads, metrics, new_bn_state) of the training loss at
     ``state.params``. ``deferred_dw`` (default: on when the model has
     ``deferred_zero_inputs``) defers the loops' weight gradients
@@ -146,17 +151,24 @@ def tacotron_grads(model, state: TrainState, batch: TacotronBatch,
     batch's: batch norm, the guided-attention denominator and the random
     draws are global inside the forward (``parallel/collectives.py``), and
     the gradients (after the deferred merge) and the metrics are averaged
-    over the ranks."""
+    over the ranks.
+
+    With ``tp`` (a ``parallel.mesh.TensorParallel``) ``state`` holds this
+    model rank's slices of the weights ``model.tp_rules`` shard, the
+    forward runs inside ``collectives.tensor_parallel``, and the
+    gradients are this rank's slices of the whole gradient (those of the
+    replicated weights whole, and equal on every model rank); ``dp`` is
+    then the data axis, and the averages run over it alone."""
     if deferred_dw is None:
         deferred_dw = hasattr(model, "deferred_zero_inputs")
     taps = None
-    if deferred_dw:
-        n, t_out = batch.mel_targets.shape[:2]
-        taps = model.deferred_zero_inputs(
-            n, t_out // model.cfg.outputs_per_step,
-            t_in=batch.inputs.shape[1], t_out=t_out)
     params = _trainable(state.params)
-    with collectives.data_parallel(dp):
+    with collectives.data_parallel(dp), collectives.tensor_parallel(tp):
+        if deferred_dw:
+            n, t_out = batch.mel_targets.shape[:2]
+            taps = model.deferred_zero_inputs(
+                n, t_out // model.cfg.outputs_per_step,
+                t_in=batch.inputs.shape[1], t_out=t_out)
         outputs, new_bn = model.forward_train(
             params, state.bn_state, batch.inputs, batch.input_lengths,
             batch.speaker_ids, batch.mel_targets, is_training=True,
@@ -174,9 +186,21 @@ def tacotron_grads(model, state: TrainState, batch: TacotronBatch,
     return grads, metrics, new_bn
 
 
+def grad_norms(grads, tp=None, rules=()):
+    """(``grad_norm``, per-leaf ``grad_norms``) of a gradient tree; with
+    ``tp``, of the whole tree that ``grads`` holds this model rank's
+    slices of (the leaves ``rules`` shard), the same on every rank."""
+    if tp is None:
+        return global_norm(grads), leaf_norms(grads)
+    sq = collectives.leaf_squares(tree_leaves(grads),
+                                  sharded_leaves(grads, rules), tp)
+    return torch.sqrt(sq.sum()), torch.sqrt(sq)
+
+
 def build_tacotron_train_step(model, optimizer, schedule=None,
                               ema_decay: float = 0.0,
-                              deferred_dw: Optional[bool] = None, dp=None):
+                              deferred_dw: Optional[bool] = None, dp=None,
+                              tp=None):
     """``step_fn(state, batch, generator) -> (state, metrics)`` for
     Tacotron-1/2 on a :class:`TacotronBatch`. Dropout and scheduled
     sampling draw from ``generator`` (on the batch's device). The metrics
@@ -187,17 +211,23 @@ def build_tacotron_train_step(model, optimizer, schedule=None,
     ``mesh``) it is the data-parallel step: ``batch`` holds this rank's
     rows, every rank passes a generator of the same seed, and every rank
     leaves with the state and metrics of the plain step on the global
-    batch (:func:`tacotron_grads`)."""
+    batch (:func:`tacotron_grads`). With ``tp`` as well it is the
+    tensor-parallel step of a state from ``parallel.tensor.
+    shard_train_state(state, tp, model.tp_rules)``: the clip and the
+    norms read the whole gradient's norm, so every rank takes one
+    branch, and the state (params, Adam's moments and the EMA) stays
+    sliced."""
 
     def step_fn(state: TrainState, batch: TacotronBatch,
                 generator: Optional[torch.Generator]):
         grads, metrics, new_bn = tacotron_grads(model, state, batch, generator,
-                                                deferred_dw, dp)
+                                                deferred_dw, dp, tp)
         with torch.no_grad():
-            updates, new_opt = optimizer.update(grads, state.opt_state)
+            norm, norms = grad_norms(grads, tp, model.tp_rules)
+            updates, new_opt = optimizer.update(grads, state.opt_state, norm)
             new_params = apply_updates(state.params, updates)
-            metrics["grad_norm"] = global_norm(grads)
-            metrics["grad_norms"] = leaf_norms(grads)
+            metrics["grad_norm"] = norm
+            metrics["grad_norms"] = norms
             if schedule is not None:
                 metrics["learning_rate"] = float(schedule(state.step))
             new_state = TrainState(

@@ -82,10 +82,14 @@ class Adam:
                 "mu": tree_map(torch.zeros_like, params),
                 "nu": tree_map(torch.zeros_like, params)}
 
-    def update(self, grads, opt_state) -> Tuple[object, Dict]:
-        """(updates to add to the params, new optimizer state)."""
+    def update(self, grads, opt_state, norm=None) -> Tuple[object, Dict]:
+        """(updates to add to the params, new optimizer state). The clip
+        reads ``norm``, the global norm of the whole gradient:
+        ``global_norm(grads)`` unless given (a tensor-parallel step's
+        ``grads`` are one model rank's slices of it)."""
         b1, b2 = self.b1, self.b2
-        norm, clip = global_norm(grads), self.gradient_clip
+        norm = global_norm(grads) if norm is None else norm
+        clip = self.gradient_clip
         # optax's select(norm < clip, g, g / norm * clip), on the device
         g = tree_map(lambda t: torch.where(norm < clip, t, t / norm * clip),
                      grads)

@@ -23,13 +23,27 @@ def tree_map(fn, tree, *rest):
     return fn(tree, *rest)
 
 
-def named_leaves(tree, prefix: str = ""):
+def named_leaves(tree):
     """``(path, leaf)`` pairs, the path ``/``-joined keys and list indices
     (``/encoder/convs/0/conv/bias``), in ``tree_leaves`` order."""
+    return [("".join(f"/{k}" for k in path), leaf)
+            for path, leaf in leaves_with_path(tree)]
+
+
+def leaves_with_path(tree, prefix: tuple = ()):
+    """``(path, leaf)`` pairs in ``tree_leaves`` order, the path a tuple of
+    dict keys and list indices (``jax.tree_util.tree_flatten_with_path``'s
+    order)."""
     if isinstance(tree, dict):
         return [pair for k in sorted(tree)
-                for pair in named_leaves(tree[k], f"{prefix}/{k}")]
+                for pair in leaves_with_path(tree[k], prefix + (k,))]
     if isinstance(tree, (list, tuple)):
         return [pair for i, x in enumerate(tree)
-                for pair in named_leaves(x, f"{prefix}/{i}")]
+                for pair in leaves_with_path(x, prefix + (i,))]
     return [(prefix, tree)]
+
+
+def keystr(path: tuple) -> str:
+    """A path of :func:`leaves_with_path` as ``jax.tree_util.keystr``
+    writes it: ``['decoder_prenet']['layers'][0]['kernel']``."""
+    return "".join(f"[{k!r}]" for k in path)
