@@ -190,9 +190,25 @@
     each form's time per sample (per step for the primed form)
     beside its bound, one ``{"kernels": [...]}`` line (one-shot, carried
     and primed records; ``launches`` summed over the paths of phases
-    5-11 and 13-16, each counted from 0 just before it) and, last, the
+    5-11, 13-16 and 19, each counted from 0 just before it) and, last, the
     ``{"ok": true, "device": ...}`` line. Exits non-zero without a card
     or when any check fails.
+19. Runs the trained-run tools on the card (``report_phase``, after phase
+    17, on phase 10's Tacotron-2 run, phase 11's WaveNet run and GTA
+    directory): 2 more Tacotron-2 steps of ``cli.train`` with a summary and
+    a checkpoint each and ``--freerun-preview`` (``max_iters`` MAX_ITERS
+    into the run's config), 1 more ``cli.train_wavenet`` step with a
+    summary; then, each with ``--device cuda``,
+    ``cli.make_alignment_corpus`` (2 utterances), ``cli.alignment_report``
+    on REPORT_TEXTS, ``cli.exposure_report`` on the Tacotron-2 run,
+    ``cli.gta_mismatch`` over the GTA directory, ``cli.serve_latency`` at
+    the cap and at REPORT_STOP, and ``cli.vocoder_report`` (1 copy of 0.5
+    s, the two texts end to end: one one-shot launch each, counted). Every
+    ``report.json`` and printed JSON must hold finite numbers only (but
+    the teacher-forced waveform correlation, NaN where every argmax code
+    is one code, as in JAX's script), every
+    PNG must be valid (signature, IHDR, inflated size), and the decoder
+    steps and launch counts must be those the inputs give.
 """
 
 from __future__ import annotations
@@ -258,6 +274,8 @@ BF16_STEPS = 3          # steps of each bf16 CLI run
 BF16_LOSS_TOL = 2e-2    # first bf16 step's loss against the float32 step's, relative
 BF16_MEL_TOL = 0.05     # bf16 teacher-forced mels against float32 (atol and rtol, JAX's)
 TP_BF16_TOL = 1e-2      # bf16 loss, tensor-parallel against plain step: a few bf16 epsilons
+REPORT_TEXTS = ("pqoc fjel azrv kmds wuh.", "tbi znogu chwad.")   # report_phase
+REPORT_STOP = 0.25      # report_phase's served threshold (docs/alignment/README.md)
 TP_TIMEOUT = 600        # seconds for the two gloo ranks of tensor_phase
 LOADER_REPS = 5         # loads per file and loader when timing
 FIRST_LOSS = {}         # the float32 CLI runs' first losses, by model
@@ -2942,6 +2960,191 @@ def tensor_phase(tmp: str) -> bool:
     return ok
 
 
+def png_ok(path: str) -> bool:
+    """A PNG file whose signature, IHDR and inflated IDAT size agree (8-bit
+    grayscale or RGB, filter bytes included)."""
+    import struct
+    import zlib
+
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] != b"\x89PNG\r\n\x1a\n" or data[12:16] != b"IHDR":
+        return False
+    w, h, depth, colour = struct.unpack(">IIBB", data[16:26])
+    idat, pos = b"", 8
+    while pos < len(data):
+        n, kind = struct.unpack(">I4s", data[pos: pos + 8])
+        if kind == b"IDAT":
+            idat += data[pos + 8: pos + 8 + n]
+        pos += 12 + n
+    channels = {0: 1, 2: 3}.get(colour)
+    return (depth == 8 and channels is not None and w > 0 and h > 0
+            and len(zlib.decompress(idat)) == h * (1 + channels * w))
+
+
+def finite_json(obj) -> bool:
+    """Every number in a JSON tree is finite."""
+    if isinstance(obj, dict):
+        return all(finite_json(v) for v in obj.values())
+    if isinstance(obj, list):
+        return all(finite_json(v) for v in obj)
+    if isinstance(obj, (int, float)) and not isinstance(obj, bool):
+        return bool(np.isfinite(obj))
+    return True
+
+
+def report_phase(tmp: str):
+    """The trained-run tools on the card (see the module's item 19), on the
+    runs of ``train_phase`` and ``wavenet_train_phase`` in ``tmp``. Returns
+    (ok, one-shot launches of ``cli.vocoder_report``)."""
+    import contextlib
+    import glob
+    import io
+    import json as json_mod
+    import os
+
+    from nspeech_tpu_torch.cli import (alignment_report, exposure_report,
+                                       gta_mismatch, make_alignment_corpus,
+                                       serve_latency, vocoder_report)
+    from nspeech_tpu_torch.cli import train as train_cli
+    from nspeech_tpu_torch.cli import train_wavenet as wn_cli
+    from nspeech_tpu_torch.ops.cuda import wavenet_gen
+
+    card = card_line()
+    phase_t0 = time.perf_counter()
+    ok = True
+    corpus = os.path.join(tmp, "corpus")
+    features = os.path.join(tmp, "features")
+    logs = os.path.join(tmp, "logs")
+    taco_run = os.path.join(logs, "taco2")
+    wn_run = os.path.join(logs, "wavenet")
+    gta_dir = os.path.join(tmp, "gta")
+    out = os.path.join(tmp, "reports")
+
+    def latest(run):
+        return max(int(os.path.basename(p)[:-3]) for p in
+                   glob.glob(os.path.join(run, "ckpt", "train", "*.pt")))
+
+    def run(main, argv):
+        buf = io.StringIO()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = main(argv)
+        torch.cuda.synchronize()
+        return rc in (None, 0), buf.getvalue(), time.perf_counter() - t0
+
+    def check(name, good, wall, detail):
+        nonlocal ok
+        ok &= bool(good)
+        print(f"report {name}: {wall:.2f} s wall, {detail} -> "
+              f"{'ok' if good else 'FAIL'} [{card}]")
+
+    def pngs_ok(directory):
+        paths = glob.glob(os.path.join(directory, "*.png"))
+        return len(paths), bool(paths) and all(png_ok(p) for p in paths)
+
+    def report_json(directory):
+        with open(os.path.join(directory, "report.json")) as f:
+            return json_mod.load(f)
+
+    # summaries and free-run previews for the report tools to read: 2 more
+    # Tacotron-2 steps (a summary and a checkpoint each), 1 more WaveNet step
+    t_step = latest(taco_run)
+    good, text, wall = run(train_cli.main, [
+        "--ljspeech", corpus, "--log-dir", logs, "--cache-dir", features,
+        "--model", "taco2", "--max-steps", str(t_step + 2), "--summary-interval",
+        "1", "--checkpoint-interval", "1", "--freerun-preview", "--seed", "0",
+        "--hparams", f"max_iters={MAX_ITERS}"])
+    check("cli.train --freerun-preview (taco2, 2 steps)",
+          good and "Free-run preview at step %d" % (t_step + 2) in text, wall,
+          f"resumed at step {t_step}")
+    w_step = latest(wn_run)
+    good, text, wall = run(wn_cli.main, [
+        "--ljspeech", corpus, "--log-dir", logs, "--hparams-from",
+        os.path.join(wn_run, "ckpt"), "--max-steps", str(w_step + 1),
+        "--summary-interval", "1", "--checkpoint-interval", "1"])
+    check("cli.train_wavenet (1 step)", good, wall, f"resumed at step {w_step}")
+
+    aln = os.path.join(tmp, "aln_corpus")
+    good, text, wall = run(make_alignment_corpus.main,
+                           [aln, "2", "29", "chars", "--device", "cuda"])
+    with open(os.path.join(aln, "metadata.csv")) as f:
+        meta = f.read().splitlines()
+    good &= len(meta) == 2 and len(glob.glob(os.path.join(aln, "wavs", "*.wav"))) == 2
+    check("cli.make_alignment_corpus", good, wall, f"2 utterances: {meta[0][:40]}...")
+
+    texts = list(REPORT_TEXTS)
+    d = os.path.join(out, "alignment")
+    good, text, wall = run(alignment_report.main, [
+        "--run-dir", taco_run, "--out", d, "--device", "cuda"]
+        + sum([["--text", t] for t in texts], []))
+    rep = report_json(d)
+    n_png, png_good = pngs_ok(d)
+    good &= (finite_json(rep) and len(rep["texts"]) == 2 and png_good
+             and n_png == 1 + 2 * len(texts)
+             and all(0 < t["decoder_steps"] <= MAX_ITERS for t in rep["texts"]))
+    check("cli.alignment_report", good, wall,
+          f"final smoothed sharpness {rep['final_sharpness_smoothed']:.4f}, decoder "
+          f"steps {[t['decoder_steps'] for t in rep['texts']]}, monotonicity "
+          f"{[t['monotonicity'] for t in rep['texts']]}, {n_png} PNGs")
+
+    d = os.path.join(out, "exposure")
+    good, text, wall = run(exposure_report.main, [
+        "--run", f"taco2={taco_run}", "--out", d, "--device", "cuda"])
+    rep = report_json(d)
+    n_png, png_good = pngs_ok(d)
+    points = rep["runs"]["taco2"]["points"]
+    good &= finite_json(rep) and png_good and len(points) >= 2
+    check("cli.exposure_report", good, wall,
+          f"freerun_rms {[p['freerun_rms'] for p in points]}")
+
+    good, text, wall = run(gta_mismatch.main, [
+        "--gta-dir", gta_dir, "--ljspeech", corpus, "--cache-dir", features,
+        "--device", "cuda"])
+    rep = json_mod.loads(text)
+    good &= finite_json(rep) and rep["n_utterances"] == TRAIN_UTTS
+    check("cli.gta_mismatch", good, wall,
+          f"{rep['n_utterances']} utterances, mel L1 mean {rep['mel_l1_mean']:.5f} "
+          f"max {rep['mel_l1_max']:.5f}")
+
+    good, text, wall = run(serve_latency.main, [
+        "--checkpoint", os.path.join(taco_run, "ckpt"), "--threshold",
+        str(REPORT_STOP), "--device", "cuda"] + sum([["--text", t] for t in texts], []))
+    rep = json_mod.loads(text)
+    good &= (finite_json(rep) and all(r["decoder_steps"] == MAX_ITERS
+                                      for r in rep["cap"]["rows"])
+             and len(rep["calibrated"]["rows"]) == len(texts))
+    check("cli.serve_latency", good, wall,
+          f"cap {rep['mean_sec_cap']} s, threshold {REPORT_STOP} "
+          f"{rep['mean_sec_calibrated']} s, decoder steps "
+          f"{[r['decoder_steps'] for r in rep['calibrated']['rows']]}")
+
+    d = os.path.join(out, "vocoder")
+    reset_launches()
+    good, text, wall = run(vocoder_report.main, [
+        "--taco-run", taco_run, "--wavenet-run", wn_run, "--corpus", corpus,
+        "--out", d, "--n-copy", "1", "--copy-seconds", "0.5", "--device", "cuda",
+        "--texts"] + texts)
+    one = wavenet_gen.SAMPLER.launches
+    rep = report_json(d)
+    n_png, png_good = pngs_ok(d)
+    tf = rep.pop("teacher_forced")
+    # the waveform correlation is NaN where every argmax code is one code
+    # (a barely trained vocoder), as in JAX's script; the rest is finite
+    good &= (finite_json(rep) and png_good and n_png == 2 + len(texts)
+             and finite_json({k: v for k, v in tf.items() if k != "waveform_corr"})
+             and one == 1 + len(texts) and rep["train_final_step"] == w_step + 1
+             and len(rep["end_to_end"]) == len(texts))
+    check("cli.vocoder_report", good, wall,
+          f"launches one-shot {one}; teacher-forced nll {tf['nll']}, waveform corr "
+          f"{tf['waveform_corr']}; copy mel L1 {rep['copy_synthesis'][0]['mel_l1']}; "
+          f"end to end mel L1 {[e['wavenet_mel_l1_vs_predicted'] for e in rep['end_to_end']]}; "
+          f"{n_png} PNGs")
+    print(f"report_phase took {time.perf_counter() - phase_t0:.1f} s")
+    return ok, one
+
+
 def loader_phase(tmp: str) -> bool:
     """The C++ audio loader built with this machine's g++: a seeded 5 s
     WAV at 22,050 Hz (resampled to 20,000 Hz) and a 5 s FLAC at 20,000 Hz
@@ -3039,6 +3242,8 @@ def main() -> int:
         parallel_ok, one = phase(parallel_phase, tmp)
         record["launches"] += one
         tensor_ok = phase(tensor_phase, tmp)
+        report_ok, one = phase(report_phase, tmp)
+        record["launches"] += one
     print(f"smoke took {time.perf_counter() - start:.1f} s after the card line")
     for rec in (record, carried, primed):
         for form, ms, bound in rec.pop("per_sample"):
@@ -3048,7 +3253,7 @@ def main() -> int:
     if not (record["checked"] and carried["checked"] and primed["checked"]
             and e2e_ok and stream_ok and taco1_ok and server_ok and cli_ok
             and train_ok and wn_ok and bf16_ok and loader_ok and import_ok
-            and export_ok and parallel_ok and tensor_ok):
+            and export_ok and parallel_ok and tensor_ok and report_ok):
         print("FAIL", file=sys.stderr)
         return 1
     print(json.dumps({"ok": True, "device": {
