@@ -190,7 +190,7 @@
     each form's time per sample (per step for the primed form)
     beside its bound, one ``{"kernels": [...]}`` line (one-shot, carried
     and primed records; ``launches`` summed over the paths of phases
-    5-11, 13-16 and 19, each counted from 0 just before it) and, last, the
+    5-11, 13-16, 19 and 20, each counted from 0 just before it) and, last, the
     ``{"ok": true, "device": ...}`` line. Exits non-zero without a card
     or when any check fails.
 19. Runs the trained-run tools on the card (``report_phase``, after phase
@@ -209,6 +209,15 @@
     is one code, as in JAX's script), every
     PNG must be valid (signature, IHDR, inflated size), and the decoder
     steps and launch counts must be those the inputs give.
+20. Runs the port's benchmark harness (``bench_phase``, last): ``python
+    -m nspeech_tpu_torch.cli.bench --steps BENCH_STEPS`` in a fresh
+    process on the card, its defaults otherwise (Tacotron-2 at batch 32,
+    160 text positions, 400 frames; WaveNet at batch 4 x 20,480; the
+    sampler, the vocoder, serving at the full decode budget, streaming).
+    It must exit 0 and print the 15 metrics of BENCH_METRICS, each value
+    finite and positive, both MFU values in (0, 1], the headline record
+    again as its last line; its sampler launches (its stderr) join the
+    one-shot and carried counts.
 """
 
 from __future__ import annotations
@@ -222,11 +231,11 @@ import time
 import numpy as np
 import torch
 
-N_CHECK = 2000          # samples per kernel-vs-plain case
+N_CHECK = 1000          # samples per kernel-vs-plain case
 N_SIMPLE = 600          # samples per simple_wavenet (M = 0) case
 N_WAVES = 200           # samples of the batch that runs in waves
 SCORE_TOL = 1e-3        # f32 logits summed in another order, same noise
-CARRY_SPLIT = (700, 1, 1299)   # carried launches that make N_CHECK samples
+CARRY_SPLIT = (350, 1, 649)    # carried launches that make N_CHECK samples
 RESUME_T0 = 30000       # where the resumed carried launch starts
 N_RESUME = 300          # samples of the resumed launch
 RING_TOL = 1e-3         # rings after the resume, relative to their largest
@@ -279,6 +288,19 @@ REPORT_STOP = 0.25      # report_phase's served threshold (docs/alignment/README
 TP_TIMEOUT = 600        # seconds for the two gloo ranks of tensor_phase
 LOADER_REPS = 5         # loads per file and loader when timing
 FIRST_LOSS = {}         # the float32 CLI runs' first losses, by model
+BENCH_STEPS = 3         # timed steps per training phase of bench_phase
+BENCH_TIMEOUT = 600     # seconds for bench_phase's process
+BENCH_METRICS = (       # cli.bench's lines, in its order
+    "taco2_train_mel_frames_per_sec_per_chip", "taco2_train_mfu",
+    "taco2_sec_per_step", "taco2_train_mel_frames_per_sec_per_chip_bf16",
+    "taco2_train_mfu_bf16", "wavenet_vocoder_lc_samples_per_sec",
+    "wavenet_train_samples_per_sec_per_chip",
+    "wavenet_train_lc_samples_per_sec_per_chip",
+    "wavenet_train_lc_samples_per_sec_per_chip_bf16",
+    "wavenet_cuda_single_stream_samples_per_sec",
+    "wavenet_cuda_batch8_samples_per_sec_per_chip",
+    "taco2_serving_sec_per_utterance_cap", "taco2_serving_wav_only_sec",
+    "taco2_streaming_first_audio_sec", "taco2_stream_batch8_rt_aggregate")
 
 
 def card_line() -> str:
@@ -3145,6 +3167,43 @@ def report_phase(tmp: str):
     return ok, one
 
 
+def bench_phase():
+    """The benchmark CLI on the card (see the module's item 20). Returns
+    (ok, its one-shot launches, its carried launches)."""
+    import math
+    import os
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "nspeech_tpu_torch.cli.bench", "--steps",
+         str(BENCH_STEPS)], cwd=os.path.dirname(os.path.abspath(__file__)),
+        capture_output=True, text=True, timeout=BENCH_TIMEOUT)
+    wall = time.perf_counter() - t0
+    lines = [json.loads(x) for x in proc.stdout.splitlines() if x.startswith("{")]
+    counts = {"one_shot": 0, "carried": 0}
+    for x in proc.stderr.splitlines():
+        if x.startswith("bench: sampler launches "):
+            counts = json.loads(x[len("bench: sampler launches "):])
+    names = tuple(r.get("metric") for r in lines[:-1])
+    values = {r["metric"]: r["value"] for r in lines[:-1]}
+    ok = (proc.returncode == 0 and names == BENCH_METRICS
+          and lines[-1] == lines[0]
+          and all(isinstance(v, (int, float)) and math.isfinite(v) and v > 0
+                  for v in values.values())
+          and all(0 < values[k] <= 1 for k in ("taco2_train_mfu",
+                                                "taco2_train_mfu_bf16")))
+    for r in lines[:-1]:
+        print(f"  bench: {r['metric']} = {r['value']} {r['unit']} "
+              f"(vs_baseline {r['vs_baseline']}, {r['precision']})")
+    print(f"bench: rc {proc.returncode}, {len(lines) - 1} metric lines of "
+          f"{len(BENCH_METRICS)}, last line the headline: {lines[-1:] == lines[:1]}, "
+          f"sampler launches {counts}, {wall:.1f} s -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        print(proc.stderr[-4000:], file=sys.stderr)
+    return ok, counts["one_shot"], counts["carried"]
+
+
 def loader_phase(tmp: str) -> bool:
     """The C++ audio loader built with this machine's g++: a seeded 5 s
     WAV at 22,050 Hz (resampled to 20,000 Hz) and a 5 s FLAC at 20,000 Hz
@@ -3244,6 +3303,9 @@ def main() -> int:
         tensor_ok = phase(tensor_phase, tmp)
         report_ok, one = phase(report_phase, tmp)
         record["launches"] += one
+    bench_ok, one, more = phase(bench_phase)
+    record["launches"] += one
+    carried["launches"] += more
     print(f"smoke took {time.perf_counter() - start:.1f} s after the card line")
     for rec in (record, carried, primed):
         for form, ms, bound in rec.pop("per_sample"):
@@ -3253,7 +3315,8 @@ def main() -> int:
     if not (record["checked"] and carried["checked"] and primed["checked"]
             and e2e_ok and stream_ok and taco1_ok and server_ok and cli_ok
             and train_ok and wn_ok and bf16_ok and loader_ok and import_ok
-            and export_ok and parallel_ok and tensor_ok and report_ok):
+            and export_ok and parallel_ok and tensor_ok and report_ok
+            and bench_ok):
         print("FAIL", file=sys.stderr)
         return 1
     print(json.dumps({"ok": True, "device": {

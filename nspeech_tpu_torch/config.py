@@ -37,6 +37,10 @@ class Config:
     def values(self) -> Dict[str, Any]:
         return dict(self._values)
 
+    def replace(self, **kwargs: Any) -> "Config":
+        """A new config with ``kwargs`` set; this one is left as it is."""
+        return Config({**self._values, **kwargs})
+
     def parse(self, override_string: str) -> "Config":
         """Apply ``k=v,...`` overrides in place (values parsed as Python
         literals when possible, strings otherwise)."""

@@ -224,9 +224,19 @@ class DataFeeder:
                 rng.shuffle(batch)
                 yield self._make_batch(batch)
 
+    @property
+    def queue_fill(self) -> float:
+        """The prefetch queue's fill ratio (the reference's backpressure
+        signal); 0 before :meth:`batches` starts."""
+        q = getattr(self, "_queue", None)
+        if q is None:
+            return 0.0
+        return q.qsize() / max(1, self._prefetch)
+
     def batches(self) -> Iterator[Batch]:
         """Endless batch stream with background prefetch."""
         q: queue.Queue = queue.Queue(maxsize=self._prefetch)
+        self._queue = q
         stop = threading.Event()
         error: list = []
 

@@ -24,6 +24,14 @@ class ValueWindow:
         self._buf.clear()
 
     @property
+    def count(self) -> int:
+        return len(self._buf)
+
+    @property
+    def sum(self):
+        return sum(self._buf)
+
+    @property
     def average(self) -> float:
         return sum(self._buf) / len(self._buf) if self._buf else 0.0
 
