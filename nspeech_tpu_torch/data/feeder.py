@@ -11,6 +11,11 @@ numpy generators as the JAX package's feeder, so one corpus and seed give
 the same batches in the same order in both packages. Batches are numpy
 arrays; one background thread prefetches them (featurizing on the host
 CPU) and passes its errors on to the consumer.
+
+While a profile runs (``utils/profiling.py``) the producer records
+``feeder.make`` around each group's examples and each batch's
+collation, and the consumer ``feeder.take`` around each wait on the
+queue for a batch.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ from nspeech_tpu_torch.data.corpus import Item, build_speaker_map, load_items
 from nspeech_tpu_torch.data.features import process_utterance
 from nspeech_tpu_torch.text import text_to_sequence
 from nspeech_tpu_torch.text.symbols import PAD_ID
+from nspeech_tpu_torch.utils import profiling
 
 _P_CMUDICT = 0.5  # probability of ARPAbet substitution per word
 
@@ -215,14 +221,18 @@ class DataFeeder:
         group_size = n * cfg.batch_group_size
         for g in range(0, len(order) - n + 1, group_size):
             group_idx = order[g: g + group_size]
-            examples = [self._example(self._items[i], rng) for i in group_idx]
+            with profiling.span("feeder.make"):
+                examples = [self._example(self._items[i], rng)
+                            for i in group_idx]
             # Bucket by output length to reduce padding.
             examples.sort(key=lambda e: e[-1])
             batches = [examples[i: i + n] for i in range(0, len(examples) - n + 1, n)]
             rng.shuffle(batches)
             for batch in batches:
                 rng.shuffle(batch)
-                yield self._make_batch(batch)
+                with profiling.span("feeder.make"):
+                    made = self._make_batch(batch)
+                yield made
 
     @property
     def queue_fill(self) -> float:
@@ -264,7 +274,8 @@ class DataFeeder:
         thread.start()
         try:
             while True:
-                b = q.get()
+                with profiling.span("feeder.take"):
+                    b = q.get()
                 if b is None:
                     raise error[0]
                 yield b

@@ -14,15 +14,30 @@ Each has one worker thread: it takes the first request, waits
 and fans the results out. One worker is deliberate: the card runs the
 launches of one CUDA stream in order anyway, so more batches in flight
 would only queue.
+
+While a profile runs (``utils/profiling.py``) each group records
+``batcher.group`` around its call, with its rows and the requests still
+queued at dispatch, and under it each of its requests ``batcher.wait``,
+from the request's enqueue to the start of the call.
 """
 
 from __future__ import annotations
 
+import contextlib
 import queue
 import threading
 import time
 from concurrent.futures import Future
-from typing import Optional
+from typing import Any, NamedTuple, Optional
+
+from nspeech_tpu_torch.utils import profiling
+
+
+class _Request(NamedTuple):
+    text: str
+    speaker_id: Any
+    sink: Any                 # the caller's Future (one-shot) or chunk queue
+    t_enq: Optional[int]      # enqueue time (profiling.stamp), None untraced
 
 
 def _is_default(speaker_id) -> bool:
@@ -58,6 +73,21 @@ def _partition(batch):
     return [g for g in (default, explicit) if g]
 
 
+@contextlib.contextmanager
+def _group_span(q: queue.Queue, group):
+    """The group's ``batcher.group`` span, with each request's
+    ``batcher.wait`` (enqueue to now) under it; nothing outside a
+    profile."""
+    now = profiling.stamp()
+    if now is None:
+        yield
+        return
+    with profiling.span("batcher.group", rows=len(group), queued=q.qsize()):
+        for r in group:
+            profiling.record("batcher.wait", r.t_enq, now)
+        yield
+
+
 class DynamicBatcher:
     def __init__(self, synthesizer, max_batch: int = 8,
                  window_ms: float = 10.0):
@@ -81,7 +111,7 @@ class DynamicBatcher:
         if not self._worker.is_alive():
             raise RuntimeError("DynamicBatcher worker thread is dead")
         fut: Future = Future()
-        self._q.put((text, speaker_id, fut))
+        self._q.put(_Request(text, speaker_id, fut, profiling.stamp()))
         return fut.result(timeout=timeout)
 
     def synthesize_batch(self, texts, speaker_ids=None):
@@ -103,13 +133,14 @@ class DynamicBatcher:
         while True:
             batch, stop = _gather(self._q, self.max_batch, self.window)
             for group in _partition(batch):
-                self._dispatch_group(group)
+                with _group_span(self._q, group):
+                    self._dispatch_group(group)
             if stop:
                 return
 
     def _dispatch_group(self, batch, _retry: bool = False) -> None:
-        texts = [t for t, _s, _f in batch]
-        speakers = [s for _t, s, _f in batch]
+        texts = [r.text for r in batch]
+        speakers = [r.speaker_id for r in batch]
         if not _retry:
             # a failed window re-runs its items one by one; counting the
             # retries would book every window-mate twice in /stats
@@ -125,13 +156,13 @@ class DynamicBatcher:
                 for item in batch:
                     self._dispatch_group([item], _retry=True)
                 return
-            for _t, _s, fut in batch:
-                if not fut.cancelled():
-                    fut.set_exception(e)
+            for r in batch:
+                if not r.sink.cancelled():
+                    r.sink.set_exception(e)
             return
-        for i, (_t, _s, fut) in enumerate(batch):
-            if not fut.cancelled():
-                fut.set_result((wavs[i], mels[i], lins[i]))
+        for i, r in enumerate(batch):
+            if not r.sink.cancelled():
+                r.sink.set_result((wavs[i], mels[i], lins[i]))
 
 
 _STREAM_END = object()
@@ -172,7 +203,7 @@ class StreamBatcher:
         if not self._worker.is_alive():
             raise RuntimeError("StreamBatcher worker thread is dead")
         out: queue.Queue = queue.Queue()
-        self._q.put((text, speaker_id, out))
+        self._q.put(_Request(text, speaker_id, out, profiling.stamp()))
         while True:
             try:
                 item = out.get(timeout=timeout)
@@ -197,14 +228,15 @@ class StreamBatcher:
         while True:
             batch, stop = _gather(self._q, self.max_batch, self.window)
             for group in _partition(batch):
-                self._dispatch_group(group)
+                with _group_span(self._q, group):
+                    self._dispatch_group(group)
             if stop:
                 return
 
     def _dispatch_group(self, batch) -> None:
-        texts = [t for t, _s, _q in batch]
-        speakers = [s for _t, s, _q in batch]
-        queues = [q for _t, _s, q in batch]
+        texts = [r.text for r in batch]
+        speakers = [r.speaker_id for r in batch]
+        queues = [r.sink for r in batch]
         self.stats["requests"] += len(batch)
         self.stats["batches"] += 1
         self.stats["max_batch_seen"] = max(self.stats["max_batch_seen"],

@@ -23,6 +23,12 @@ The stream is held to ``WaveNetVocoder.vocode_batch`` of its own mel
 (codes and waveform identical at the same seed) and its mel to the
 model's ``forward``. Griffin-Lim is not streamed: its iteration is
 global over the utterance.
+
+While a profile runs (``utils/profiling.py``) a batch records
+``stream.prefix``, from its entry to the first read of the stop flags
+(the host waits there for the encoder, the prefix decode and the first
+postnet window on the device), and ``stream.launch`` for each sampler
+launch, from its start to its chunk's delivery, with the launch's index.
 """
 
 from __future__ import annotations
@@ -43,6 +49,7 @@ from nspeech_tpu_torch.ops.upsample import upsample_abs
 from nspeech_tpu_torch.serving.errors import ClientError, check_ids
 from nspeech_tpu_torch.text import text_to_sequence
 from nspeech_tpu_torch.text.symbols import PAD_ID
+from nspeech_tpu_torch.utils import profiling
 
 SEED = 0            # the sampler's noise key: WaveNetVocoder.vocode's default
 MAX_GENERATORS = 8  # packed weight copies kept on the device, per speaker tuple
@@ -233,6 +240,7 @@ class StreamingTTS:
         ``last_total_frames`` (stream 0's) and ``last_launch_to_delivery``
         (seconds from each launch's start to its chunk's delivery).
         """
+        t_entry = profiling.stamp()     # stream.prefix opens
         cfg, r, k, halo = self.cfg, self.cfg.outputs_per_step, self.k, self._halo
         dev, hop = self.device, self._hop
         n_real = len(texts)
@@ -299,11 +307,14 @@ class StreamingTTS:
             return self._Vs[min(launches, len(self._Vs) - 1)]
 
         def pull_stops():
-            nonlocal row_done, row_total
+            nonlocal row_done, row_total, t_entry
             row_done = carry[3].cpu().numpy().copy()
             if row_done.any():
                 stops = np.minimum(carry[4].cpu().numpy(), budget)
                 row_total = np.where(row_done, stops * r, B)
+            if t_entry is not None:        # the first read closes the prefix
+                profiling.record("stream.prefix", t_entry, time.time_ns())
+                t_entry = None
 
         def mel_m() -> int:
             """Postnet window multiplier: 1 until first audio is out, then
@@ -333,7 +344,8 @@ class StreamingTTS:
 
         def vocode_next():
             """Launch the sampler over samples [s, s + V) of every stream;
-            returns the pending chunk (host copy, event, s0, launch time)."""
+            returns the pending chunk (host copy, event, s0, launch time,
+            launch stamp)."""
             nonlocal s, voc_carry, launches
             V = next_V()
             if total_max is not None:      # the tail: stop at the end (the
@@ -341,6 +353,7 @@ class StreamingTTS:
             W = self._W_of(V)
             launches += 1
             t_launch = time.perf_counter()
+            t_ns = profiling.stamp()
             f0 = s // hop
             fe = (s + V) // hop + 2        # highest frame row touched
             mel_ready(min(fe + 1, total_max if total_max is not None else B, B))
@@ -358,13 +371,16 @@ class StreamingTTS:
                 voc_carry, V, seed=SEED, lc=lc, temperature=self._temperature)
             host, ready = self._to_host(dsp.mu_law_decode(codes, Q))
             s0, s = s, s + V
-            return host, ready, s0, t_launch
+            return host, ready, s0, t_launch, t_ns
 
         def deliver(item):
-            host, ready, s0, t_launch = item
+            host, ready, s0, t_launch, t_ns = item
             if ready is not None:
                 ready.synchronize()
             wav = host.numpy()             # [N, V]; padding rows dropped
+            if t_ns is not None:
+                profiling.record("stream.launch", t_ns, time.time_ns(),
+                                 index=len(self.last_launch_to_delivery))
             self.last_launch_to_delivery.append(time.perf_counter() - t_launch)
             out = []
             for i in range(n_real):

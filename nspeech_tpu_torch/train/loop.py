@@ -16,6 +16,14 @@ leaves with the plain step's result on the global batch. With a
 tensor-parallel: the state holds this model rank's slices
 (``parallel/tensor.py`` ``shard_train_state``) and the step leaves with
 this rank's slices of the plain step's result.
+
+While a profile runs (``utils/profiling.py``) the Tacotron step records
+its phases as spans: ``train.to_device`` (the batch's pinned copies),
+``train.forward`` (the forward and the loss), ``train.backward``
+(autograd), ``train.merge`` (the deferred weight gradients and the
+data-parallel average) and ``train.update`` (the norms, the clip and
+Adam, the EMA). They time the host's dispatch of each phase; the card
+runs behind it.
 """
 
 from __future__ import annotations
@@ -28,6 +36,7 @@ import torch
 from nspeech_tpu_torch.parallel import collectives
 from nspeech_tpu_torch.parallel.tensor import sharded_leaves
 from nspeech_tpu_torch.train.optim import apply_updates, global_norm
+from nspeech_tpu_torch.utils import profiling
 from nspeech_tpu_torch.utils.tree import tree_leaves, tree_map
 
 
@@ -77,11 +86,12 @@ def batch_to_device(batch, device) -> TacotronBatch:
     def move(x, dtype):
         return _move(x, dtype, device)
 
-    return TacotronBatch(move(batch.inputs, torch.int64),
-                         move(batch.input_lengths, torch.int64),
-                         move(batch.speaker_ids, torch.int64),
-                         move(batch.mel_targets, torch.float32),
-                         move(batch.linear_targets, torch.float32))
+    with profiling.span("train.to_device"):
+        return TacotronBatch(move(batch.inputs, torch.int64),
+                             move(batch.input_lengths, torch.int64),
+                             move(batch.speaker_ids, torch.int64),
+                             move(batch.mel_targets, torch.float32),
+                             move(batch.linear_targets, torch.float32))
 
 
 def create_state(model, optimizer, seed: int, ema: bool = False,
@@ -164,19 +174,21 @@ def tacotron_grads(model, state: TrainState, batch: TacotronBatch,
     taps = None
     params = _trainable(state.params)
     with collectives.data_parallel(dp), collectives.tensor_parallel(tp):
-        if deferred_dw:
-            n, t_out = batch.mel_targets.shape[:2]
-            taps = model.deferred_zero_inputs(
-                n, t_out // model.cfg.outputs_per_step,
-                t_in=batch.inputs.shape[1], t_out=t_out)
-        outputs, new_bn = model.forward_train(
-            params, state.bn_state, batch.inputs, batch.input_lengths,
-            batch.speaker_ids, batch.mel_targets, is_training=True,
-            generator=generator, deferred=taps)
-        loss, metrics = model.loss(outputs, batch.mel_targets,
-                                   batch.linear_targets)
-        grads = _grads(loss, params)
-    with torch.no_grad():
+        with profiling.span("train.forward"):
+            if deferred_dw:
+                n, t_out = batch.mel_targets.shape[:2]
+                taps = model.deferred_zero_inputs(
+                    n, t_out // model.cfg.outputs_per_step,
+                    t_in=batch.inputs.shape[1], t_out=t_out)
+            outputs, new_bn = model.forward_train(
+                params, state.bn_state, batch.inputs, batch.input_lengths,
+                batch.speaker_ids, batch.mel_targets, is_training=True,
+                generator=generator, deferred=taps)
+            loss, metrics = model.loss(outputs, batch.mel_targets,
+                                       batch.linear_targets)
+        with profiling.span("train.backward"):
+            grads = _grads(loss, params)
+    with torch.no_grad(), profiling.span("train.merge"):
         if taps is not None:
             grads = model.deferred_merge_grads(grads, taps)
         metrics = {k: v.detach() for k, v in metrics.items()}
@@ -222,7 +234,7 @@ def build_tacotron_train_step(model, optimizer, schedule=None,
                 generator: Optional[torch.Generator]):
         grads, metrics, new_bn = tacotron_grads(model, state, batch, generator,
                                                 deferred_dw, dp, tp)
-        with torch.no_grad():
+        with torch.no_grad(), profiling.span("train.update"):
             norm, norms = grad_norms(grads, tp, model.tp_rules)
             updates, new_opt = optimizer.update(grads, state.opt_state, norm)
             new_params = apply_updates(state.params, updates)

@@ -3,8 +3,8 @@
 
 - ``trace`` writes a gzipped Chrome trace of the block that
   ``summarize_trace`` reads back as ``(ms, count, name)`` rows (the host's
-  operators on a CPU run), also through ``python -m``; ``StepTimer`` and
-  ``device_memory_stats`` run without a card.
+  operators on a CPU run), also through ``python -m``. The span recorder
+  is tested in ``tests/test_torch_tracing.py``.
 - ``plot_wave`` writes a valid 8-bit grayscale PNG whose pixels are the
   waveform's per-column min/max envelope.
 """
@@ -54,17 +54,6 @@ def test_missing_trace_raises(tmp_path):
 
     with pytest.raises(FileNotFoundError):
         profiling.summarize_trace(str(tmp_path))
-
-
-def test_step_timer_and_memory_stats():
-    timer = profiling.StepTimer()
-    for _ in range(2):
-        timer.start()
-        assert timer.stop({"x": torch.ones(3), "n": None}) >= 0
-    assert len(timer.history) == 2 and timer.mean >= 0
-    stats = profiling.device_memory_stats()
-    if not torch.cuda.is_available():
-        assert stats == {"cpu": None}
 
 
 def _read_png(path):
