@@ -17,22 +17,35 @@ tensor-parallel: the state holds this model rank's slices
 (``parallel/tensor.py`` ``shard_train_state``) and the step leaves with
 this rank's slices of the plain step's result.
 
+On a CUDA batch (and neither ``dp`` nor ``tp``) the Tacotron step runs
+as one CUDA graph per padded shape, as the JAX package compiles its step
+once per padded shape, and donates its state as that step does
+(``donate_argnums=(0,)``): see :func:`build_tacotron_train_step`. The
+eager step pays the host's dispatch of some 50,000 launches a step at
+the published widths; a replay pays one launch of the whole graph.
+
 While a profile runs (``utils/profiling.py``) the Tacotron step records
 its phases as spans: ``train.to_device`` (the batch's pinned copies),
 ``train.forward`` (the forward and the loss), ``train.backward``
 (autograd), ``train.merge`` (the deferred weight gradients and the
 data-parallel average) and ``train.update`` (the norms, the clip and
 Adam, the EMA). They time the host's dispatch of each phase; the card
-runs behind it.
+runs behind it. A step that replays a CUDA graph records
+``train.replay`` in their place (attributes ``captured``, true on the
+step that captured its graph, and ``shape``, the padded ``(N, T_in,
+T_out)``); the step that captures records the phase spans of its capture
+under it, and a shape's first step, which runs eagerly, records them as
+the eager step does.
 """
 
 from __future__ import annotations
 
-from typing import Any, NamedTuple, Optional
+from typing import Any, Callable, Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from nspeech_tpu_torch.ops.policy import compute_dtype
 from nspeech_tpu_torch.parallel import collectives
 from nspeech_tpu_torch.parallel.tensor import sharded_leaves
 from nspeech_tpu_torch.train.optim import apply_updates, global_norm
@@ -209,6 +222,157 @@ def grad_norms(grads, tp=None, rules=()):
     return torch.sqrt(sq.sum()), torch.sqrt(sq)
 
 
+def graph_key(model, batch, generator, deferred_dw: bool, dp=None, tp=None):
+    """The key of the CUDA graph that a Tacotron step on ``batch`` replays,
+    or None where the step runs eagerly: a batch off CUDA, or a data- or
+    tensor-parallel step (their collectives stay outside graphs). The key
+    holds what changes the captured work: the padded shapes ``(N, T_in,
+    T_out)``, the compute dtype, ``deferred_dw``, the scheduled-sampling
+    ratio and whether there is a generator to draw from."""
+    if dp is not None or tp is not None or batch.inputs.device.type != "cuda":
+        return None
+    cfg = model.cfg
+    n, t_out = batch.mel_targets.shape[:2]
+    return (n, batch.inputs.shape[1], t_out, compute_dtype(cfg), bool(deferred_dw),
+            float(cfg.get("scheduled_sampling_ratio", 0.0)), generator is not None)
+
+
+def _donated(state: TrainState) -> tuple:
+    """The trees a graphed step updates in place: params, batch-norm
+    state, Adam's moments and the EMA (None without one)."""
+    return (state.params, state.bn_state, state.opt_state["mu"],
+            state.opt_state["nu"], state.ema_params)
+
+
+def _leaves(trees) -> list:
+    return [x for tree in trees if tree is not None for x in tree_leaves(tree)]
+
+
+class _Graph(NamedTuple):
+    graph: Any                        # torch.cuda.CUDAGraph
+    inputs: TacotronBatch             # the static batch it reads
+    metrics: Dict[str, torch.Tensor]  # its outputs, in the graphs' pool
+
+
+class CudaGraphSteps:
+    """A Tacotron step as CUDA graphs, one per :func:`graph_key`, over one
+    set of static state buffers on the card.
+
+    A key's first call runs the step eagerly, on the stream that captures
+    run on (the first such call sets up cuBLAS's workspaces and autograd's
+    device thread there, outside a capture), and writes the new state
+    into the static buffers. Its second call captures the step, and that
+    call and every later one replay the graph. A capture costs the host
+    about twice an eager step's dispatch, and its instantiation more
+    again, so a shape seen once is not captured. Each
+    call copies the state into the static buffers unless it holds them; a
+    replay copies the batch into the graph's static batch, Adam's scalars
+    (``Adam.scalars``) into 0-dim device tensors, and the caller's
+    generator state into the generator the graphs draw from (its draws
+    are the eager step's; the caller's generator then stands where the
+    eager step leaves it). The graph writes the new state into the static
+    buffers after their last read, and the metrics are copied out of the
+    graphs' one memory pool, which every graph reuses."""
+
+    def __init__(self, step: Callable, optimizer, schedule=None):
+        self.step, self.optimizer, self.schedule = step, optimizer, schedule
+        self.graphs: Dict[tuple, _Graph] = {}
+        self.seen: set = set()            # keys whose first call ran eagerly
+        self.static = None                # _donated() trees on the card
+        self.scalars = None               # Adam's (lr, c1, c2) on the card
+        self.stream = self.pool = self.generator = None
+
+    def __call__(self, state: TrainState, batch: TacotronBatch,
+                 generator: Optional[torch.Generator], key: tuple):
+        if self.static is None:
+            self._start(state, batch.inputs.device)
+        self._take(state)
+        if key not in self.graphs and key not in self.seen:
+            self.seen.add(key)
+            return self._eager(state, batch, generator)
+        count = state.opt_state["count"]
+        captured = key not in self.graphs
+        with profiling.span("train.replay", captured=captured, shape=key[:3]):
+            if captured:
+                self.graphs[key] = self._capture(state, generator, batch)
+            g = self.graphs[key]
+            for dst, src in zip(g.inputs, batch):
+                dst.copy_(src)
+            for t, v in zip(self.scalars, self.optimizer.scalars(count)):
+                t.fill_(v)
+            if generator is not None:
+                self.generator.set_state(generator.get_state())
+            g.graph.replay()
+            if generator is not None:
+                generator.set_state(self.generator.get_state())
+            metrics = {k: v.clone() for k, v in g.metrics.items()}
+        if self.schedule is not None:
+            metrics["learning_rate"] = float(self.schedule(state.step))
+        return self._state(state.step + 1, count + 1), metrics
+
+    def _state(self, step: int, count: int) -> TrainState:
+        params, bn_state, mu, nu, ema = self.static
+        return TrainState(step, params, bn_state,
+                          {"count": count, "mu": mu, "nu": nu}, ema)
+
+    def _start(self, state: TrainState, device) -> None:
+        """The static buffers (shaped as ``state``'s trees), Adam's
+        scalars, the capture stream, the graphs' pool and their
+        generator."""
+        self.static = tuple(None if tree is None else tree_map(torch.empty_like, tree)
+                            for tree in _donated(state))
+        # Adam's scalars in the moments' dtype: a Python float meets a
+        # float64 moment in float64
+        dtype = torch.promote_types(tree_leaves(self.static[2])[0].dtype, torch.float32)
+        self.scalars = tuple(torch.zeros((), dtype=dtype, device=device)
+                             for _ in range(3))
+        self.stream = torch.cuda.Stream(device)
+        self.pool = torch.cuda.graph_pool_handle()
+        self.generator = torch.Generator(device)
+
+    def _eager(self, state, batch, generator):
+        main = torch.cuda.current_stream(batch.inputs.device)
+        self.stream.wait_stream(main)
+        with torch.cuda.stream(self.stream):
+            new, metrics = self.step(
+                self._state(state.step, state.opt_state["count"]), batch, generator)
+            torch._foreach_copy_(_leaves(self.static), _leaves(_donated(new)))
+        # the step's tensors free into the capture stream's blocks, which
+        # the next call on that stream reuses only after waiting for main
+        main.wait_stream(self.stream)
+        return self._state(new.step, new.opt_state["count"]), metrics
+
+    def _take(self, state: TrainState) -> None:
+        """Donation: a state that does not hold the static buffers is
+        copied into them."""
+        static, leaves = _leaves(self.static), _leaves(_donated(state))
+        if len(leaves) == len(static) and all(a is b for a, b in zip(static, leaves)):
+            return
+        if [x.shape for x in leaves] != [x.shape for x in static]:
+            raise ValueError("the state does not match the graphed step's buffers")
+        torch._foreach_copy_(static, leaves)
+
+    def _capture(self, state, generator, batch) -> _Graph:
+        inputs = TacotronBatch(*(torch.empty_like(x) for x in batch))
+        graph = torch.cuda.CUDAGraph()
+        if generator is not None:
+            graph.register_generator_state(self.generator)
+        # not torch.cuda.graph: it also empties the card's and the pinned
+        # host memory's caches, so each capture's next batches allocate anew
+        self.stream.wait_stream(torch.cuda.current_stream(batch.inputs.device))
+        with torch.cuda.stream(self.stream):
+            graph.capture_begin(self.pool)
+            try:
+                new, metrics = self.step(
+                    self._state(state.step, state.opt_state["count"]), inputs,
+                    None if generator is None else self.generator, self.scalars)
+                torch._foreach_copy_(_leaves(self.static), _leaves(_donated(new)))
+            finally:
+                graph.capture_end()
+        metrics.pop("learning_rate", None)
+        return _Graph(graph, inputs, metrics)
+
+
 def build_tacotron_train_step(model, optimizer, schedule=None,
                               ema_decay: float = 0.0,
                               deferred_dw: Optional[bool] = None, dp=None,
@@ -228,15 +392,29 @@ def build_tacotron_train_step(model, optimizer, schedule=None,
     shard_train_state(state, tp, model.tp_rules)``: the clip and the
     norms read the whole gradient's norm, so every rank takes one
     branch, and the state (params, Adam's moments and the EMA) stays
-    sliced."""
+    sliced.
 
-    def step_fn(state: TrainState, batch: TacotronBatch,
-                generator: Optional[torch.Generator]):
+    On a CUDA batch without ``dp`` and ``tp`` the step runs as CUDA
+    graphs, one per padded shape (:func:`graph_key`,
+    :class:`CudaGraphSteps`, ``step_fn.graphs``; a shape's first step
+    runs eagerly, its second captures), and DONATES its state,
+    as the JAX package's jitted step does (``donate_argnums=(0,)``): the
+    params, batch-norm state, Adam's moments and the EMA are updated in
+    place in static buffers on the card, the returned state holds them,
+    and a state passed in that holds them is consumed (the next step
+    overwrites them). Its kernels and their order are the eager step's,
+    and so are its random draws."""
+    if deferred_dw is None:
+        deferred_dw = hasattr(model, "deferred_zero_inputs")
+
+    def eager(state: TrainState, batch: TacotronBatch,
+              generator: Optional[torch.Generator], scalars=None):
         grads, metrics, new_bn = tacotron_grads(model, state, batch, generator,
                                                 deferred_dw, dp, tp)
         with torch.no_grad(), profiling.span("train.update"):
             norm, norms = grad_norms(grads, tp, model.tp_rules)
-            updates, new_opt = optimizer.update(grads, state.opt_state, norm)
+            updates, new_opt = optimizer.update(grads, state.opt_state, norm,
+                                                scalars)
             new_params = apply_updates(state.params, updates)
             metrics["grad_norm"] = norm
             metrics["grad_norms"] = norms
@@ -247,6 +425,16 @@ def build_tacotron_train_step(model, optimizer, schedule=None,
                 ema_update(state.ema_params, new_params, ema_decay))
         return new_state, metrics
 
+    graphs = CudaGraphSteps(eager, optimizer, schedule)
+
+    def step_fn(state: TrainState, batch: TacotronBatch,
+                generator: Optional[torch.Generator]):
+        key = graph_key(model, batch, generator, deferred_dw, dp, tp)
+        if key is None:
+            return eager(state, batch, generator)
+        return graphs(state, batch, generator, key)
+
+    step_fn.graphs = graphs
     return step_fn
 
 

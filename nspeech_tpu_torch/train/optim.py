@@ -82,11 +82,22 @@ class Adam:
                 "mu": tree_map(torch.zeros_like, params),
                 "nu": tree_map(torch.zeros_like, params)}
 
-    def update(self, grads, opt_state, norm=None) -> Tuple[object, Dict]:
+    def scalars(self, count: int) -> Tuple[float, float, float]:
+        """``(lr, c1, c2)`` of the update at ``count`` (the state's count
+        before it): the negated learning rate ``-schedule(count)`` and the
+        bias corrections of the two moments, as float32 values."""
+        return (-float(self.schedule(count)), _bias_correction(self.b1, count + 1),
+                _bias_correction(self.b2, count + 1))
+
+    def update(self, grads, opt_state, norm=None,
+               scalars=None) -> Tuple[object, Dict]:
         """(updates to add to the params, new optimizer state). The clip
         reads ``norm``, the global norm of the whole gradient:
         ``global_norm(grads)`` unless given (a tensor-parallel step's
-        ``grads`` are one model rank's slices of it)."""
+        ``grads`` are one model rank's slices of it). ``scalars`` are
+        :meth:`scalars` of the count as 0-dim tensors on the device (a
+        CUDA graph's, filled before each replay) in place of the Python
+        floats: the update's bits are the same."""
         b1, b2 = self.b1, self.b2
         norm = global_norm(grads) if norm is None else norm
         clip = self.gradient_clip
@@ -96,10 +107,15 @@ class Adam:
         count = opt_state["count"] + 1
         mu = tree_map(lambda t, m: (1 - b1) * t + b1 * m, g, opt_state["mu"])
         nu = tree_map(lambda t, v: (1 - b2) * t * t + b2 * v, g, opt_state["nu"])
-        c1, c2 = _bias_correction(b1, count), _bias_correction(b2, count)
-        lr = -float(self.schedule(opt_state["count"]))
+        lr, c1, c2 = self.scalars(opt_state["count"]) if scalars is None else scalars
+        divide = torch.div
+        if isinstance(c1, torch.Tensor) and c1.is_cuda:
+            # PyTorch's CUDA kernels divide by a host scalar as a product
+            # with its reciprocal (rounded in the tensor's dtype); a device
+            # scalar gets the same product, and so the same bits
+            c1, c2, divide = torch.reciprocal(c1), torch.reciprocal(c2), torch.mul
         updates = tree_map(
-            lambda m, v: lr * ((m / c1) / (torch.sqrt(v / c2) + self.eps)),
+            lambda m, v: lr * (divide(m, c1) / (torch.sqrt(divide(v, c2)) + self.eps)),
             mu, nu)
         return updates, {"count": count, "mu": mu, "nu": nu}
 

@@ -22,9 +22,11 @@ directory and prints:
    errors; the 4 worst leaves of the first comparison; then one
    ``step_fn`` per device: the loss, ``grad_norm`` and the update's norm.
 2. One training step at batch 32 on the longest batch (after two warm-up
-   steps): its wall time, then the same step under ``torch.profiler``:
-   the device time by operation, the host time by operation, the count
-   of kernel launches and the device's busy share of the step.
+   steps; a replay of its CUDA graph): its wall time, then the same step
+   under ``torch.profiler``, run eagerly so that each kernel keeps its
+   operation's name: the device time by operation, the host time by
+   operation, the count of kernel launches and the device's busy share
+   of the step.
 
 With ``--model wavenet`` it does the same for the vocoder at the repo's
 recipe (``chip_smoke.WN_HPARAMS``: the ``wavenet`` preset, lc 80, gc 16):
@@ -209,9 +211,14 @@ def print_profile(step, state, data, step_ms: float, log_dir: str,
     the kernel time spent in ``aten::add_`` (autograd accumulating
     gradients, the optimizer's and the EMA's adds) with its 5 costliest
     input shapes. Returns those numbers; ``tables=False`` prints the
-    summary lines alone."""
+    summary lines alone. A Tacotron step that runs as CUDA graphs
+    (``step.graphs``) is profiled as its eager step, the same kernels:
+    a replayed graph's kernels carry no operation's name."""
     from nspeech_tpu_torch.utils import profiling
 
+    graphs = getattr(step, "graphs", None)
+    if graphs is not None:
+        step = graphs.step
     with profiling.trace(log_dir, record_shapes=True) as prof:
         state, m = step(state, data, step_generator("cuda", 0, 3))
         float(m["loss"])

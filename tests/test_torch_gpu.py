@@ -462,3 +462,248 @@ def test_registered_operator_launches_the_kernel(cuda):
     ref = CudaWaveNetGenerator(net, params, gc_ids=[0, 2])(200, seed=3, batch=2,
                                                           lc=lc)
     assert torch.equal(codes, ref)
+
+
+# -- the Tacotron train step as CUDA graphs (train/loop.py CudaGraphSteps) ----
+
+TINY_T2 = ("encoder_conv_layers=2,postnet_conv_layers=2,expand_conv_layers=2,"
+           "encoder_conv_channels=32,attention_dim=32,postnet_conv_channels=32,"
+           "expand_conv_channels=32,decoder_lstm_units=32,encoder_lstm_units=16,"
+           "expand_lstm_units=16,embedding_dim=32,ema_decay=0.99")
+TINY_T1 = ("encoder_cbhg_banks=2,post_cbhg_banks=2,attention_dim=32,decoder_dim=32,"
+           "embedding_dim=32,ema_decay=0.99")
+# padded (T_in, T_out) of the steps, in turn: shapes A, B, A, C, B, A
+GRAPH_SHAPES = [(16, 40), (32, 60), (16, 40), (16, 80), (32, 60), (16, 40)]
+
+
+def graph_batch(seed, t_in, t_out, rows=4):
+    """A feeder batch of random symbols and targets, zero past each row's
+    lengths, on the card."""
+    from nspeech_tpu_torch.data.feeder import Batch
+    from nspeech_tpu_torch.train.loop import batch_to_device
+
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(t_in // 2, t_in + 1, rows)
+    lengths[0] = t_in
+    frames = rng.integers(t_out // 2, t_out + 1, rows)
+    ids = rng.integers(2, 60, (rows, t_in))
+    ids[np.arange(t_in)[None] >= lengths[:, None]] = 0
+    mel = rng.random((rows, t_out, 80), dtype=np.float32)
+    lin = rng.random((rows, t_out, 1025), dtype=np.float32)
+    mel[np.arange(t_out)[None] >= frames[:, None]] = 0.0
+    lin[np.arange(t_out)[None] >= frames[:, None]] = 0.0
+    return batch_to_device(Batch(ids, lengths, np.zeros(rows, np.int64), mel, lin,
+                                 np.zeros((rows, 0), np.float32)), "cuda")
+
+
+def graph_run(step, model, opt, batches, on_step=None):
+    """Steps over ``batches`` from the state of init seed 0, each with the
+    runner's generator; returns each step's metrics and state on the host
+    (a graphed step donates its state: the next step overwrites it)."""
+    from nspeech_tpu_torch.train.loop import create_state, step_generator
+
+    state = create_state(model, opt, 0, ema=True, device="cuda")
+    out = []
+    for k, batch in enumerate(batches):
+        state, metrics = step(state, batch, step_generator("cuda", 7, k))
+        if on_step is not None:
+            on_step(k, metrics)
+        out.append(host_tree({"metrics": {n: v for n, v in metrics.items()
+                                          if isinstance(v, torch.Tensor)},
+                              "params": state.params, "bn": state.bn_state,
+                              "mu": state.opt_state["mu"],
+                              "nu": state.opt_state["nu"], "ema": state.ema_params}))
+    return out
+
+
+def host_tree(tree):
+    if isinstance(tree, dict):
+        return {k: host_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [host_tree(v) for v in tree]
+    return tree.detach().to("cpu", copy=True)
+
+
+def worst_gaps(a, b):
+    """Per part (metrics, params, bn, mu, nu, ema): the largest absolute
+    difference of any entry over every step of two runs."""
+    from nspeech_tpu_torch.utils.tree import tree_leaves
+
+    return {part: max(float((x.double() - y.double()).abs().max()) if x.numel() else 0.0
+                      for sa, sb in zip(a, b)
+                      for x, y in zip(tree_leaves(sa[part]), tree_leaves(sb[part])))
+            for part in a[0]}
+
+
+def graph_setup(extra="", name="taco2"):
+    from nspeech_tpu_torch.models import Tacotron1
+    from nspeech_tpu_torch.train.optim import make_optimizer
+
+    cfg = load_config(name).parse({"taco1": TINY_T1, "taco2": TINY_T2}[name] + extra)
+    model = {"taco1": Tacotron1, "taco2": Tacotron2}[name](cfg)
+    opt, sched = make_optimizer(cfg, name)
+    return cfg, model, opt, sched
+
+
+def graph_gaps_within_eager(build, model, opt, batches, on_step=None):
+    """Two eager runs and one graphed run over ``batches``, from one
+    state; asserts that the graphed run's worst gap to the first eager
+    run is within the two eager runs' own, part by part (bit for bit
+    where they agree). Returns the graphed step and its run."""
+    eager = [graph_run(build().graphs.step, model, opt, batches) for _ in range(2)]
+    step = build()
+    graphed = graph_run(step, model, opt, batches, on_step)
+    between_eager = worst_gaps(eager[0], eager[1])
+    for k in range(len(batches)):
+        print(f"step {k}: eager vs eager {worst_gaps(eager[0][k:k + 1], eager[1][k:k + 1])}"
+              f", graphed vs eager {worst_gaps(eager[0][k:k + 1], graphed[k:k + 1])}")
+    for part, gap in worst_gaps(eager[0], graphed).items():
+        assert gap <= between_eager[part], (part, gap, between_eager[part])
+    return step, graphed
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,extra,deferred_dw", [
+    ("taco2", "", None),
+    ("taco2", ",scheduled_sampling_ratio=0.3", None),
+    ("taco2", ",compute_dtype=bfloat16", None),
+    ("taco2", "", False),
+    ("taco1", "", None),
+], ids=["taco2", "taco2-scheduled-sampling", "taco2-bf16", "taco2-autograd-dw",
+        "taco1"])
+def test_graphed_train_step_equals_eager(cuda, name, extra, deferred_dw, monkeypatch):
+    """Over the padded shapes A, B, A, C, B, A, with prenet dropout (and
+    scheduled sampling) drawn from the runner's generators, for Tacotron-2
+    (float32, bf16 compute, weight gradients deferred or from autograd)
+    and Tacotron-1 (its GRU decoder): the graphed step's losses,
+    grad_norms, params, Adam's moments, batch-norm state and EMA equal
+    the eager step's within what two eager runs differ by (bit for bit
+    when they agree: cuDNN's deterministic algorithms, so that its weight
+    gradients sum in one order); each shape's first step eager, its
+    second captured (A and B; C, seen once, never), the last a replay
+    alone; a step's metrics unchanged by the next step."""
+    from nspeech_tpu_torch.train.loop import build_tacotron_train_step
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    cfg, model, opt, sched = graph_setup(extra, name)
+    batches = [graph_batch(k, *s) for k, s in enumerate(GRAPH_SHAPES)]
+    kept = {}
+
+    def check_kept(k, metrics):
+        if k:
+            for n, (held, copy) in kept.items():
+                assert torch.equal(held, copy), f"step {k - 1}'s {n} changed"
+        kept.clear()
+        kept.update({n: (v, v.clone()) for n, v in metrics.items()
+                     if isinstance(v, torch.Tensor)})
+
+    step, graphed = graph_gaps_within_eager(
+        lambda: build_tacotron_train_step(model, opt, sched, cfg.ema_decay,
+                                          deferred_dw=deferred_dw),
+        model, opt, batches, check_kept)
+    # steps 0, 1 and 3 run eagerly; 2 and 4 capture A and B; 5 replays A
+    assert sorted(k[:3] for k in step.graphs.graphs) == sorted(
+        (4,) + GRAPH_SHAPES[k] for k in (0, 1))
+    assert {k[:3] for k in step.graphs.seen} == {(4,) + s for s in GRAPH_SHAPES}
+    losses = [s["metrics"]["loss"].item() for s in graphed]
+    assert len(set(losses)) == len(losses) and all(np.isfinite(losses))
+
+
+@pytest.mark.gpu
+def test_graphed_train_step_at_published_widths_equals_eager(cuda, monkeypatch):
+    """Tacotron-2 at the published widths (the ``t2wn.train`` cell's, TF32
+    off as the cell runs) at batch 32 and one padded shape the cell's
+    corpus meets, (T_in, T_out) = (160, 800): an eager step, the step
+    that captures and replays, and a replay, each on its own batch,
+    equal to two eager runs' steps within what those differ by (bit for
+    bit when they agree, under cuDNN's deterministic algorithms)."""
+    from nspeech_tpu_torch.train.loop import build_tacotron_train_step
+    from nspeech_tpu_torch.train.optim import make_optimizer
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = load_config("taco2")
+    model = Tacotron2(cfg)
+    opt, sched = make_optimizer(cfg, "taco2")
+    batches = [graph_batch(k, 160, 800, rows=cfg.batch_size) for k in range(3)]
+    step, _ = graph_gaps_within_eager(
+        lambda: build_tacotron_train_step(model, opt, sched, cfg.ema_decay),
+        model, opt, batches)
+    assert [k[:3] for k in step.graphs.graphs] == [(cfg.batch_size, 160, 800)]
+
+
+@pytest.mark.gpu
+def test_graphed_train_step_draws_the_eager_masks(cuda, monkeypatch):
+    """Every random draw of a replay (the prenet's dropout masks, the
+    scheduled-sampling coins) equals the eager step's from a generator
+    seeded the same way: the draws are copied, as they are made, into a
+    buffer outside the graphs' pool, which each replay writes anew."""
+    from nspeech_tpu_torch.parallel import collectives
+    from nspeech_tpu_torch.train.loop import build_tacotron_train_step
+
+    cfg, model, opt, sched = graph_setup(",scheduled_sampling_ratio=0.3")
+    batches = [graph_batch(k, *s) for k, s in enumerate(GRAPH_SHAPES)]
+    record = torch.zeros(1 << 20, device=cuda)
+    cursor = [0]
+    rand_rows = collectives.rand_rows
+
+    def recorded(shape, generator, device):
+        x = rand_rows(shape, generator, device)
+        record[cursor[0]:cursor[0] + x.numel()].copy_(x.reshape(-1))
+        cursor[0] += x.numel()
+        return x
+
+    monkeypatch.setattr(collectives, "rand_rows", recorded)
+    draws, counts = {}, []
+    for mode in ("eager", "graphed"):
+        step = build_tacotron_train_step(model, opt, sched, cfg.ema_decay)
+        if mode == "eager":
+            step = step.graphs.step
+
+        def keep(k, metrics, mode=mode):
+            # a replay makes no Python call: the eager step's count of
+            # draws says how much of the buffer the replay wrote
+            if mode == "eager":
+                counts.append(cursor[0])
+            draws[mode, k] = record[:counts[k]].cpu()
+            assert not record[counts[k]:].any()
+            cursor[0] = 0
+            record.zero_()
+
+        graph_run(step, model, opt, batches, keep)
+    for k in range(len(GRAPH_SHAPES)):
+        assert counts[k] > 0
+        assert torch.equal(draws["graphed", k], draws["eager", k]), k
+    assert not torch.equal(draws["eager", 0], draws["eager", 2])   # other seeds
+
+
+@pytest.mark.gpu
+def test_data_parallel_train_step_stays_eager(cuda):
+    """A step with ``dp`` (one rank over NCCL) runs the eager step: no
+    graph, no static state, and the plain step's loss."""
+    import socket
+
+    import torch.distributed as dist
+
+    from nspeech_tpu_torch.parallel.mesh import DataParallel
+    from nspeech_tpu_torch.train.loop import build_tacotron_train_step
+
+    cfg, model, opt, sched = graph_setup()
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=0, world_size=1)
+    try:
+        dp = DataParallel(0, 1, cuda)
+        step = build_tacotron_train_step(model, opt, sched, cfg.ema_decay, dp=dp)
+        batches = [graph_batch(0, *GRAPH_SHAPES[0])] * 2
+        got = graph_run(step, model, opt, batches)
+        assert step.graphs.static is None and not step.graphs.graphs
+    finally:
+        dist.destroy_process_group()
+    plain = graph_run(build_tacotron_train_step(model, opt, sched, cfg.ema_decay).graphs.step,
+                      model, opt, batches)
+    assert [r["metrics"]["loss"].item() for r in got] == pytest.approx(
+        [r["metrics"]["loss"].item() for r in plain], rel=1e-5)
