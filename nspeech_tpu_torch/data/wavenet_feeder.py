@@ -15,6 +15,13 @@ mode the mel is the acoustic model's teacher-forced prediction exported by
 ``data/gta.py``. The epoch order is ``numpy.random.default_rng((seed,
 epoch))``, as in the JAX package, so one corpus and seed give the same
 batches in both.
+
+The feeder runs inline in the consumer's thread. While a profile runs
+(``utils/profiling.py``) it records ``feeder.featurize`` per utterance
+visited (the load, the trim and the mel; attribute ``samples``, the
+padded length) and ``feeder.make`` per batch assembled (the stacking;
+attribute ``utterances``, how many its windows came from). Both close
+before the feeder yields.
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ from nspeech_tpu_torch.data.corpus import Item, build_speaker_map, load_items
 from nspeech_tpu_torch.dsp.audio import spectrograms
 from nspeech_tpu_torch.dsp.trim import trim_silence
 from nspeech_tpu_torch.native import load_wav
+from nspeech_tpu_torch.utils import profiling
 
 
 class WaveNetBatch(NamedTuple):
@@ -132,19 +140,23 @@ class WaveNetFeeder:
         utterance (phase None in the per-sample layout)."""
         wav_path, _text, local_speaker, dataset_id = item
         speaker_id = self.speaker2id[(dataset_id, str(local_speaker))]
-        wav = load_wav(wav_path, self._cfg.sample_rate)
-        if self.silence_threshold is not None:
-            wav = trim_silence(wav, self.silence_threshold)
-            if wav.size == 0:
-                return  # silence-only utterance: skipped
-        if self.gta_dir is not None:
-            mel = self._gta_mel(wav_path, len(wav))
-            wav = np.pad(wav, (self._gta_pad, 0))
-        else:
-            wav = np.pad(wav, (self.receptive_field, 0))
-            _, mel = spectrograms(wav, self._cfg)
-        if not self.frame_lc:
-            mel_samples = upsample_frames(mel, self._hop, len(wav))
+        with profiling.span("feeder.featurize") as sp:
+            wav = load_wav(wav_path, self._cfg.sample_rate)
+            if self.silence_threshold is not None:
+                wav = trim_silence(wav, self.silence_threshold)
+                if wav.size == 0:
+                    return  # silence-only utterance: skipped
+            if self.gta_dir is not None:
+                mel = self._gta_mel(wav_path, len(wav))
+                wav = np.pad(wav, (self._gta_pad, 0))
+            else:
+                wav = np.pad(wav, (self.receptive_field, 0))
+                _, mel = spectrograms(wav, self._cfg)
+            if not self.frame_lc:
+                mel_samples = upsample_frames(mel, self._hop, len(wav))
+            attrs = getattr(sp, "attrs", None)      # None outside a profile
+            if attrs is not None:
+                attrs["samples"] = len(wav)
         offset = 0
         while len(wav) - offset > self.window:
             if self.frame_lc:
@@ -170,6 +182,7 @@ class WaveNetFeeder:
         n = self._cfg.batch_size
         epoch = 0
         buf: list = []
+        sources: set = set()        # the items the buffered windows came from
         while True:
             order = np.random.default_rng((self._seed, epoch)).permutation(
                 len(self._items))
@@ -178,15 +191,20 @@ class WaveNetFeeder:
                 for window in self._utterance_windows(self._items[i]):
                     windows += 1
                     buf.append(window)
+                    sources.add(i)
                     if len(buf) == n:
-                        audio, spk, mel, phase = zip(*buf)
-                        yield WaveNetBatch(
-                            np.stack(audio).astype(np.float32),
-                            np.asarray(spk, dtype=np.int32),
-                            np.stack(mel).astype(np.float32),
-                            (np.asarray(phase, dtype=np.int32)
-                             if self.frame_lc else None))
+                        with profiling.span("feeder.make",
+                                            utterances=len(sources)):
+                            audio, spk, mel, phase = zip(*buf)
+                            batch = WaveNetBatch(
+                                np.stack(audio).astype(np.float32),
+                                np.asarray(spk, dtype=np.int32),
+                                np.stack(mel).astype(np.float32),
+                                (np.asarray(phase, dtype=np.int32)
+                                 if self.frame_lc else None))
+                        yield batch
                         buf = []
+                        sources = set()
             if not windows:
                 raise RuntimeError(
                     "no utterance of %d items is longer than one window of "

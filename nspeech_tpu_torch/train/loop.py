@@ -29,7 +29,8 @@ its phases as spans: ``train.to_device`` (the batch's pinned copies),
 ``train.forward`` (the forward and the loss), ``train.backward``
 (autograd), ``train.merge`` (the deferred weight gradients and the
 data-parallel average) and ``train.update`` (the norms, the clip and
-Adam, the EMA). They time the host's dispatch of each phase; the card
+Adam, the EMA). The WaveNet step records the same phases but
+``train.merge``. They time the host's dispatch of each phase; the card
 runs behind it. A step that replays a CUDA graph records
 ``train.replay`` in their place (attributes ``captured``, true on the
 step that captured its graph, and ``shape``, the padded ``(N, T_in,
@@ -139,12 +140,13 @@ def wavenet_batch_to_device(batch, device) -> WaveNetDeviceBatch:
     if isinstance(batch, WaveNetDeviceBatch):
         return batch
     device = torch.device(device)
-    return WaveNetDeviceBatch(
-        _move(batch.audio, torch.float32, device),
-        _move(batch.speaker_ids, torch.int64, device),
-        _move(batch.mel, torch.float32, device),
-        None if batch.mel_phase is None
-        else _move(batch.mel_phase, torch.int64, device))
+    with profiling.span("train.to_device"):
+        return WaveNetDeviceBatch(
+            _move(batch.audio, torch.float32, device),
+            _move(batch.speaker_ids, torch.int64, device),
+            _move(batch.mel, torch.float32, device),
+            None if batch.mel_phase is None
+            else _move(batch.mel_phase, torch.int64, device))
 
 
 def _trainable(params):
@@ -450,12 +452,14 @@ def wavenet_grads(net, params, batch: WaveNetDeviceBatch, cfg,
     from nspeech_tpu_torch.ops.upsample import batch_lc
 
     params = _trainable(params)
-    logits, targets = net.forward_train(
-        params, batch.audio, gc_ids=batch.speaker_ids if use_gc else None,
-        lc=batch_lc(batch, cfg) if use_lc else None)
-    loss, metrics = net.loss(logits, targets, params=params,
-                             l2_strength=l2_strength)
-    grads = _grads(loss, params)
+    with profiling.span("train.forward"):
+        logits, targets = net.forward_train(
+            params, batch.audio, gc_ids=batch.speaker_ids if use_gc else None,
+            lc=batch_lc(batch, cfg) if use_lc else None)
+        loss, metrics = net.loss(logits, targets, params=params,
+                                 l2_strength=l2_strength)
+    with profiling.span("train.backward"):
+        grads = _grads(loss, params)
     with torch.no_grad():
         metrics = {k: v.detach() for k, v in metrics.items()}
         if dp is not None:
@@ -480,7 +484,7 @@ def build_wavenet_train_step(net, optimizer, cfg, schedule=None,
         del generator
         grads, metrics = wavenet_grads(net, state.params, batch, cfg, use_gc,
                                        use_lc, l2_strength, dp)
-        with torch.no_grad():
+        with torch.no_grad(), profiling.span("train.update"):
             updates, new_opt = optimizer.update(grads, state.opt_state)
             new_params = apply_updates(state.params, updates)
             metrics["grad_norm"] = global_norm(grads)

@@ -12,7 +12,11 @@ marked ``gpu``.
   the launch's index) under the group; ``DynamicBatcher`` records its
   waits and groups; one Tacotron-2 train step records its five ``train.*`` phases
   once each, in order, under the caller's span; the feeder records
-  ``feeder.take`` and ``feeder.make``.
+  ``feeder.take`` and ``feeder.make``. A WaveNet step records its four
+  phases and ``WaveNetFeeder`` ``feeder.featurize`` and ``feeder.make``,
+  once each per step on a corpus of two windows an utterance, none
+  outside a profile, and the step's result is the same with or without
+  them, bit for bit.
 - Each ``program_span`` metric of ``benchmark/metrics/`` that reads the
   spans returns the value the spans give, and None without spans, after
   the buffer dropped records, or on a program without the recorder.
@@ -41,15 +45,18 @@ from benchmark.harness import core
 from benchmark.harness.core import Run
 from nspeech_tpu_torch.config import load_config
 from nspeech_tpu_torch.data.feeder import DataFeeder
+from nspeech_tpu_torch.data.wavenet_feeder import WaveNetFeeder
 from nspeech_tpu_torch.models import WaveNet, create_model
 from nspeech_tpu_torch.serving import (DynamicBatcher, StreamBatcher,
                                        StreamingTTS, Synthesizer,
                                        WaveNetVocoder)
 from nspeech_tpu_torch.train.loop import (TrainState, batch_to_device,
-                                          build_tacotron_train_step)
+                                          build_tacotron_train_step,
+                                          build_wavenet_train_step, create_state,
+                                          wavenet_batch_to_device)
 from nspeech_tpu_torch.train.optim import make_optimizer
 from nspeech_tpu_torch.utils import profiling
-from nspeech_tpu_torch.utils.tree import tree_map
+from nspeech_tpu_torch.utils.tree import tree_leaves, tree_map
 
 torch.set_num_threads(1)
 
@@ -324,6 +331,69 @@ def test_feeder_records_take_and_make(tmp_path):
     assert makes and all(r.thread != takes[0].thread for r in makes)
 
 
+def _wavenet_setup(tmp_path):
+    """A vocoder step and its feeder's stream over clips of 6,000 samples,
+    trimmed to 5,632: two windows of 9 + 2,000 samples each, one batch."""
+    from scipy.io import wavfile
+
+    (tmp_path / "wavs").mkdir()
+    t = np.arange(6000) / 20000.0
+    lines = []
+    for i in range(4):
+        wav = 0.6 * np.sin(2 * np.pi * (200 + 50 * i) * t)
+        wavfile.write(str(tmp_path / "wavs" / f"W{i}.wav"), 20000,
+                      (wav * 32767).astype(np.int16))
+        lines.append(f"W{i}|text {i}|text {i}")
+    (tmp_path / "metadata.csv").write_text("\n".join(lines) + "\n")
+    cfg = load_config("wavenet").parse(VOC + ",sample_size=2000,batch_size=2")
+    net = create_model("wavenet", cfg)
+    optimizer, schedule = make_optimizer(cfg, "wavenet")
+    step_fn = build_wavenet_train_step(net, optimizer, cfg, schedule=schedule,
+                                       use_lc=True)
+    feeder = WaveNetFeeder({"ljspeech": str(tmp_path)}, net.receptive_field, cfg)
+    return step_fn, create_state(net, optimizer, 0), feeder.batches()
+
+
+def test_wavenet_step_and_feeder_record_their_phases(tmp_path):
+    step_fn, state, stream = _wavenet_setup(tmp_path)
+    cpu = torch.device("cpu")
+    state, _ = step_fn(state, wavenet_batch_to_device(next(stream), cpu))
+    assert profiling.spans() == []                  # outside a profile
+    outers = []
+    with _profile():
+        for _ in range(2):
+            with profiling.span("test.step") as outer:
+                batch = next(stream)
+                state, metrics = step_fn(state, wavenet_batch_to_device(batch, cpu))
+            outers.append(outer.id)
+    stream.close()
+    phases = ["feeder.featurize", "feeder.make", "train.to_device",
+              "train.forward", "train.backward", "train.update"]
+    for outer in outers:
+        mine = sorted((r for r in profiling.spans() if r.parent == outer),
+                      key=lambda r: r.t0_ns)
+        assert [r.name for r in mine] == phases
+        assert all(a.t1_ns <= b.t0_ns for a, b in zip(mine, mine[1:]))
+        assert mine[0].attrs == {"samples": 9 + 5632}
+        assert mine[1].attrs == {"utterances": 1}
+        assert all(r.attrs == {} for r in mine[2:])
+    assert torch.isfinite(metrics["loss"])
+
+
+def test_wavenet_step_is_the_same_with_spans(tmp_path):
+    step_fn, state, stream = _wavenet_setup(tmp_path)
+    data = wavenet_batch_to_device(next(stream), torch.device("cpu"))
+    stream.close()
+    plain, m_plain = step_fn(state, data)
+    with _profile():
+        traced, m_traced = step_fn(state, data)
+    assert len(profiling.spans()) == 3
+    assert torch.equal(m_plain["loss"], m_traced["loss"])
+    for a, b in zip(tree_leaves(plain.params) + tree_leaves(plain.opt_state),
+                    tree_leaves(traced.params) + tree_leaves(traced.opt_state)):
+        assert torch.equal(torch.as_tensor(a), torch.as_tensor(b))
+
+
 # -- the metrics that read the spans --------------------------------------------
 
 def _recorded(spec):
@@ -361,7 +431,8 @@ STREAM_SPANS = [
 TRAIN_SPANS = [(n, BASE + k, BASE + k + d, {}) for k, (n, d) in enumerate(
     [("train.to_device", 0.010), ("train.forward", 0.200), ("train.backward", 0.300),
      ("train.merge", 0.040), ("train.update", 0.090), ("feeder.take", 0.003),
-     ("train.forward", 0.100), ("feeder.make", 0.020), ("feeder.make", 0.010)])]
+     ("train.forward", 0.100), ("feeder.make", 0.020), ("feeder.make", 0.010),
+     ("feeder.featurize", 0.040)])]
 
 METRICS = {
     "batcher_wait_p90_s.stream": (STREAM_SPANS, 4.6),
@@ -376,6 +447,11 @@ METRICS = {
     "update_ms_per_step.train": (TRAIN_SPANS, 90.0 / 2),
     "feeder_take_ms_per_step.train": (TRAIN_SPANS, 3.0 / 2),
     "feeder_busy_ms_per_step.train": (TRAIN_SPANS, 30.0 / 2),
+    "to_device_ms_per_step.wavenet_train": (TRAIN_SPANS, 10.0 / 2),
+    "forward_ms_per_step.wavenet_train": (TRAIN_SPANS, 300.0 / 2),
+    "backward_ms_per_step.wavenet_train": (TRAIN_SPANS, 300.0 / 2),
+    "update_ms_per_step.wavenet_train": (TRAIN_SPANS, 90.0 / 2),
+    "feeder_make_ms_per_step.wavenet_train": (TRAIN_SPANS, (30.0 + 40.0) / 2),
 }
 
 
@@ -398,11 +474,12 @@ def test_metric_reads_the_spans(metric, monkeypatch):
 
 def test_metrics_are_in_the_manifest_with_their_cells():
     per_layer = {m["name"]: m for m in core.manifest()["per_layer"]}
+    cells = {"stream": "t2wn.stream", "train": "t2wn.train",
+             "wavenet_train": "wavenet.train"}
     for name in METRICS:
         m = per_layer[name]
         assert m["source"] == "program_span"
-        assert m["workloads"] == ["t2wn.stream" if name.endswith(".stream")
-                                  else "t2wn.train"]
+        assert m["workloads"] == [cells[name.rsplit(".", 1)[1]]]
 
 
 # -- on the card ----------------------------------------------------------------
