@@ -201,16 +201,25 @@ class WaveNet:
             logits = logits + params["post2_bias"]
         return logits
 
-    def _embed_gc(self, params: Params, gc_ids) -> Optional[torch.Tensor]:
-        """Rows of the gc table; ids outside it raise ValueError on the
-        host (on the card the index would be a device-side assert; JAX's
-        ``jnp.take`` returns NaN rows)."""
-        if gc_ids is None or not self.gc_channels:
-            return None
+    def check_gc_ids(self, params: Params, gc_ids) -> None:
+        """Raise ValueError on the host for an id outside the gc table (on
+        the card the index would be a device-side assert; JAX's
+        ``jnp.take`` returns NaN rows). Reads the ids on the host."""
         table = params["gc_embedding"]
         ids = torch.as_tensor(gc_ids, dtype=torch.int64)
         if ids.numel() and not 0 <= int(ids.min()) <= int(ids.max()) < table.shape[0]:
             raise ValueError(f"gc ids {ids.tolist()} outside [0, {table.shape[0]})")
+
+    def _embed_gc(self, params: Params, gc_ids) -> Optional[torch.Tensor]:
+        """Rows of the gc table, the ids checked by :meth:`check_gc_ids`
+        except inside a CUDA graph's capture, which cannot read them (the
+        graphed train step checks them before each replay)."""
+        if gc_ids is None or not self.gc_channels:
+            return None
+        table = params["gc_embedding"]
+        ids = torch.as_tensor(gc_ids, dtype=torch.int64)
+        if not (ids.is_cuda and torch.cuda.is_current_stream_capturing()):
+            self.check_gc_ids(params, ids)
         return table[ids.to(table.device)]
 
     # ------------------------------------------------------------------

@@ -21,8 +21,12 @@ On a CUDA batch (and neither ``dp`` nor ``tp``) the Tacotron step runs
 as one CUDA graph per padded shape, as the JAX package compiles its step
 once per padded shape, and donates its state as that step does
 (``donate_argnums=(0,)``): see :func:`build_tacotron_train_step`. The
-eager step pays the host's dispatch of some 50,000 launches a step at
-the published widths; a replay pays one launch of the whole graph.
+WaveNet step does the same on a CUDA batch without ``dp``; its windows
+have one shape, so one graph serves a run
+(:func:`build_wavenet_train_step`). The eager steps pay the host's
+dispatch of some 50,000 (Tacotron-2) and 11,000 (the vocoder) launches a
+step at the published widths; a replay pays one launch of the whole
+graph.
 
 While a profile runs (``utils/profiling.py``) the Tacotron step records
 its phases as spans: ``train.to_device`` (the batch's pinned copies),
@@ -33,10 +37,11 @@ Adam, the EMA). The WaveNet step records the same phases but
 ``train.merge``. They time the host's dispatch of each phase; the card
 runs behind it. A step that replays a CUDA graph records
 ``train.replay`` in their place (attributes ``captured``, true on the
-step that captured its graph, and ``shape``, the padded ``(N, T_in,
-T_out)``); the step that captures records the phase spans of its capture
-under it, and a shape's first step, which runs eagerly, records them as
-the eager step does.
+step that captured its graph, and ``shape``, the key's first three
+entries: a Tacotron step's padded ``(N, T_in, T_out)``, a WaveNet step's
+audio and mel shapes and whether it has ``mel_phase``); the step that
+captures records the phase spans of its capture under it, and a shape's
+first step, which runs eagerly, records them as the eager step does.
 """
 
 from __future__ import annotations
@@ -252,13 +257,15 @@ def _leaves(trees) -> list:
 
 class _Graph(NamedTuple):
     graph: Any                        # torch.cuda.CUDAGraph
-    inputs: TacotronBatch             # the static batch it reads
+    inputs: NamedTuple                # the static batch it reads
     metrics: Dict[str, torch.Tensor]  # its outputs, in the graphs' pool
 
 
 class CudaGraphSteps:
-    """A Tacotron step as CUDA graphs, one per :func:`graph_key`, over one
-    set of static state buffers on the card.
+    """A train step as CUDA graphs, one per key (:func:`graph_key`,
+    :func:`wavenet_graph_key`), over one set of static state buffers on
+    the card. The batch is any NamedTuple of tensors on the card; a field
+    that is None (``WaveNetDeviceBatch.mel_phase`` per sample) stays None.
 
     A key's first call runs the step eagerly, on the stream that captures
     run on (the first such call sets up cuBLAS's workspaces and autograd's
@@ -274,7 +281,9 @@ class CudaGraphSteps:
     are the eager step's; the caller's generator then stands where the
     eager step leaves it). The graph writes the new state into the static
     buffers after their last read, and the metrics are copied out of the
-    graphs' one memory pool, which every graph reuses."""
+    graphs' one memory pool, which every graph reuses. A step that reads a
+    device value on the host cannot be captured: the WaveNet step checks
+    its gc ids before the call."""
 
     def __init__(self, step: Callable, optimizer, schedule=None):
         self.step, self.optimizer, self.schedule = step, optimizer, schedule
@@ -284,10 +293,10 @@ class CudaGraphSteps:
         self.scalars = None               # Adam's (lr, c1, c2) on the card
         self.stream = self.pool = self.generator = None
 
-    def __call__(self, state: TrainState, batch: TacotronBatch,
+    def __call__(self, state: TrainState, batch: NamedTuple,
                  generator: Optional[torch.Generator], key: tuple):
         if self.static is None:
-            self._start(state, batch.inputs.device)
+            self._start(state, batch[0].device)
         self._take(state)
         if key not in self.graphs and key not in self.seen:
             self.seen.add(key)
@@ -299,7 +308,8 @@ class CudaGraphSteps:
                 self.graphs[key] = self._capture(state, generator, batch)
             g = self.graphs[key]
             for dst, src in zip(g.inputs, batch):
-                dst.copy_(src)
+                if dst is not None:
+                    dst.copy_(src)
             for t, v in zip(self.scalars, self.optimizer.scalars(count)):
                 t.fill_(v)
             if generator is not None:
@@ -333,7 +343,7 @@ class CudaGraphSteps:
         self.generator = torch.Generator(device)
 
     def _eager(self, state, batch, generator):
-        main = torch.cuda.current_stream(batch.inputs.device)
+        main = torch.cuda.current_stream(batch[0].device)
         self.stream.wait_stream(main)
         with torch.cuda.stream(self.stream):
             new, metrics = self.step(
@@ -355,13 +365,22 @@ class CudaGraphSteps:
         torch._foreach_copy_(static, leaves)
 
     def _capture(self, state, generator, batch) -> _Graph:
-        inputs = TacotronBatch(*(torch.empty_like(x) for x in batch))
+        device = batch[0].device
+        # a capture allocates from the graphs' pool and cannot release the
+        # cache's free blocks to the card while it runs: where the cache
+        # holds more than the card has free (another model trained in this
+        # process), it is emptied first
+        if (torch.cuda.memory_reserved(device) - torch.cuda.memory_allocated(device)
+                > torch.cuda.mem_get_info(device)[0]):
+            torch.cuda.empty_cache()
+        inputs = type(batch)(*(None if x is None else torch.empty_like(x)
+                               for x in batch))
         graph = torch.cuda.CUDAGraph()
         if generator is not None:
             graph.register_generator_state(self.generator)
         # not torch.cuda.graph: it also empties the card's and the pinned
         # host memory's caches, so each capture's next batches allocate anew
-        self.stream.wait_stream(torch.cuda.current_stream(batch.inputs.device))
+        self.stream.wait_stream(torch.cuda.current_stream(device))
         with torch.cuda.stream(self.stream):
             graph.capture_begin(self.pool)
             try:
@@ -468,6 +487,20 @@ def wavenet_grads(net, params, batch: WaveNetDeviceBatch, cfg,
     return grads, metrics
 
 
+def wavenet_graph_key(net, batch, dp=None):
+    """The key of the CUDA graph that a WaveNet step on ``batch`` replays,
+    or None where the step runs eagerly: a batch off CUDA, or a
+    data-parallel step (its collectives stay outside graphs). The key
+    holds what changes the captured work: the shapes of ``audio`` and
+    ``mel``, whether there is a ``mel_phase`` (the frame-rate layout
+    against the per-sample one) and the compute dtype; the step's
+    conditioning, L2 term and EMA are fixed when it is built."""
+    if dp is not None or batch.audio.device.type != "cuda":
+        return None
+    return (tuple(batch.audio.shape), tuple(batch.mel.shape),
+            batch.mel_phase is not None, compute_dtype(net.cfg))
+
+
 def build_wavenet_train_step(net, optimizer, cfg, schedule=None,
                              use_gc: bool = False, use_lc: bool = False,
                              l2_strength: Optional[float] = None,
@@ -478,14 +511,26 @@ def build_wavenet_train_step(net, optimizer, cfg, schedule=None,
     (the cross-entropy; with L2 also ``l2_loss`` and ``total_loss``),
     ``grad_norm``, ``grad_norms``, ``learning_rate``. With ``dp`` it is
     the data-parallel step over this rank's windows
-    (:func:`wavenet_grads`)."""
+    (:func:`wavenet_grads`).
 
-    def step_fn(state: TrainState, batch: WaveNetDeviceBatch, generator=None):
+    On a CUDA batch without ``dp`` the step runs as CUDA graphs, one per
+    :func:`wavenet_graph_key` (:class:`CudaGraphSteps`,
+    ``step_fn.graphs``; a shape's first step runs eagerly, its second
+    captures, every later one replays), and DONATES its state as the
+    Tacotron step does (:func:`build_tacotron_train_step`): the params,
+    Adam's moments and the EMA are updated in place in static buffers on
+    the card, and a state passed in that holds them is consumed. With
+    ``use_gc`` the speaker ids are checked on the host before the graph
+    runs, so an id outside the table raises as it does in the eager
+    step. Its kernels and their order are the eager step's."""
+
+    def eager(state: TrainState, batch: WaveNetDeviceBatch, generator=None,
+              scalars=None):
         del generator
         grads, metrics = wavenet_grads(net, state.params, batch, cfg, use_gc,
                                        use_lc, l2_strength, dp)
         with torch.no_grad(), profiling.span("train.update"):
-            updates, new_opt = optimizer.update(grads, state.opt_state)
+            updates, new_opt = optimizer.update(grads, state.opt_state, None, scalars)
             new_params = apply_updates(state.params, updates)
             metrics["grad_norm"] = global_norm(grads)
             metrics["grad_norms"] = leaf_norms(grads)
@@ -496,6 +541,17 @@ def build_wavenet_train_step(net, optimizer, cfg, schedule=None,
                 ema_update(state.ema_params, new_params, ema_decay))
         return new_state, metrics
 
+    graphs = CudaGraphSteps(eager, optimizer, schedule)
+
+    def step_fn(state: TrainState, batch: WaveNetDeviceBatch, generator=None):
+        key = wavenet_graph_key(net, batch, dp)
+        if key is None:
+            return eager(state, batch)
+        if use_gc and net.gc_channels:
+            net.check_gc_ids(state.params, batch.speaker_ids)
+        return graphs(state, batch, None, key)
+
+    step_fn.graphs = graphs
     return step_fn
 
 

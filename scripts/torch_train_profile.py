@@ -211,9 +211,10 @@ def print_profile(step, state, data, step_ms: float, log_dir: str,
     the kernel time spent in ``aten::add_`` (autograd accumulating
     gradients, the optimizer's and the EMA's adds) with its 5 costliest
     input shapes. Returns those numbers; ``tables=False`` prints the
-    summary lines alone. A Tacotron step that runs as CUDA graphs
-    (``step.graphs``) is profiled as its eager step, the same kernels:
-    a replayed graph's kernels carry no operation's name."""
+    summary lines alone. A step that runs as CUDA graphs (``step.graphs``:
+    the Tacotron and the WaveNet step on the card) is profiled as its
+    eager step, the same kernels: a replayed graph's kernels carry no
+    operation's name."""
     from nspeech_tpu_torch.utils import profiling
 
     graphs = getattr(step, "graphs", None)

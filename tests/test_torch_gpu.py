@@ -31,6 +31,8 @@ and must give what the plain version gives; a model without local
 conditioning (M = 0, the ``simple_wavenet`` preset) runs without the
 cluster's lc projection."""
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -526,12 +528,14 @@ def host_tree(tree):
 
 def worst_gaps(a, b):
     """Per part (metrics, params, bn, mu, nu, ema): the largest absolute
-    difference of any entry over every step of two runs."""
+    difference of any entry over every step of two runs (0 for a part
+    with no leaves, a WaveNet's batch-norm state)."""
     from nspeech_tpu_torch.utils.tree import tree_leaves
 
-    return {part: max(float((x.double() - y.double()).abs().max()) if x.numel() else 0.0
-                      for sa, sb in zip(a, b)
-                      for x, y in zip(tree_leaves(sa[part]), tree_leaves(sb[part])))
+    return {part: max((float((x.double() - y.double()).abs().max()) if x.numel() else 0.0
+                       for sa, sb in zip(a, b)
+                       for x, y in zip(tree_leaves(sa[part]), tree_leaves(sb[part]))),
+                      default=0.0)
             for part in a[0]}
 
 
@@ -678,32 +682,214 @@ def test_graphed_train_step_draws_the_eager_masks(cuda, monkeypatch):
     assert not torch.equal(draws["eager", 0], draws["eager", 2])   # other seeds
 
 
-@pytest.mark.gpu
-def test_data_parallel_train_step_stays_eager(cuda):
-    """A step with ``dp`` (one rank over NCCL) runs the eager step: no
-    graph, no static state, and the plain step's loss."""
+@contextlib.contextmanager
+def one_rank(device):
+    """A ``parallel.mesh.DataParallel`` of one rank over NCCL."""
     import socket
 
     import torch.distributed as dist
 
     from nspeech_tpu_torch.parallel.mesh import DataParallel
-    from nspeech_tpu_torch.train.loop import build_tacotron_train_step
 
-    cfg, model, opt, sched = graph_setup()
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
     dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
                             rank=0, world_size=1)
     try:
-        dp = DataParallel(0, 1, cuda)
+        yield DataParallel(0, 1, device)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+def test_data_parallel_train_step_stays_eager(cuda):
+    """A step with ``dp`` (one rank over NCCL) runs the eager step: no
+    graph, no static state, and the plain step's loss."""
+    from nspeech_tpu_torch.train.loop import build_tacotron_train_step
+
+    cfg, model, opt, sched = graph_setup()
+    with one_rank(cuda) as dp:
         step = build_tacotron_train_step(model, opt, sched, cfg.ema_decay, dp=dp)
         batches = [graph_batch(0, *GRAPH_SHAPES[0])] * 2
         got = graph_run(step, model, opt, batches)
         assert step.graphs.static is None and not step.graphs.graphs
-    finally:
-        dist.destroy_process_group()
     plain = graph_run(build_tacotron_train_step(model, opt, sched, cfg.ema_decay).graphs.step,
                       model, opt, batches)
+    assert [r["metrics"]["loss"].item() for r in got] == pytest.approx(
+        [r["metrics"]["loss"].item() for r in plain], rel=1e-5)
+
+
+# -- the WaveNet train step as a CUDA graph (train/loop.py, one shape a run) ---
+
+WN_GRAPH = TINY_WN + ",sample_size=512,batch_size=3"
+WN_PUBLISHED = ("lc_channels=80,gc_channels=0,gc_category_cardinality=0,"
+                "sample_size=20480,batch_size=4,ema_decay=0,l2_regularization_strength=0")
+
+
+def wavenet_graph_batch(seed, cfg, per_sample=False, ids=None):
+    """``cfg.batch_size`` random windows of the receptive field +
+    ``sample_size`` samples on the card, with mels as the feeder ships
+    them (frame rows and each window's phase) or per sample (the GTA
+    layout, no phase), and random speakers (or ``ids``)."""
+    from nspeech_tpu_torch.config import stft_params
+    from nspeech_tpu_torch.data.wavenet_feeder import WaveNetBatch
+    from nspeech_tpu_torch.train.loop import wavenet_batch_to_device
+
+    rng = np.random.default_rng(seed)
+    rows, width = cfg.batch_size, cfg.lc_channels
+    window = WaveNet(cfg).receptive_field + cfg.sample_size
+    hop = stft_params(cfg)[1]
+    if per_sample:
+        mel, phase = rng.random((rows, window, width), dtype=np.float32), None
+    else:
+        mel = rng.random((rows, (window + hop - 2) // hop + 2, width), dtype=np.float32)
+        phase = rng.integers(0, hop, rows).astype(np.int32)
+    if ids is None:
+        ids = rng.integers(0, max(1, cfg.gc_category_cardinality), rows)
+    return wavenet_batch_to_device(WaveNetBatch(
+        rng.uniform(-0.9, 0.9, (rows, window)).astype(np.float32),
+        np.asarray(ids, np.int32), mel, phase), "cuda")
+
+
+def wavenet_graphs_equal_eager(cfg, batches, monkeypatch, use_gc=False, bad=None):
+    """:func:`graph_gaps_within_eager` for the WaveNet step with lc over
+    ``batches`` (one shape: eager, capture, then replays); with ``bad``, a
+    batch with a speaker id outside the table, the graphed run first
+    tries it at every step: it raises and nothing is captured or
+    replayed. Asserts one graph, keyed by the batches' shapes, replayed
+    from the second step on; returns the graphed run."""
+    from nspeech_tpu_torch.train.loop import build_wavenet_train_step, wavenet_graph_key
+    from nspeech_tpu_torch.train.optim import make_optimizer
+
+    net = WaveNet(cfg)
+    opt, sched = make_optimizer(cfg, "wavenet")
+    replays = []
+    replay = torch.cuda.CUDAGraph.replay
+
+    def counted(graph):
+        replays.append(graph)
+        return replay(graph)
+
+    def build():
+        step = build_wavenet_train_step(net, opt, cfg, sched, use_gc=use_gc, use_lc=True,
+                                        ema_decay=cfg.ema_decay)
+        if bad is None:
+            return step
+
+        def probed(state, batch, generator=None):
+            before = (len(replays), len(step.graphs.graphs))
+            with pytest.raises(ValueError, match="outside"):
+                step(state, bad)
+            assert (len(replays), len(step.graphs.graphs)) == before
+            return step(state, batch, generator)
+
+        probed.graphs = step.graphs
+        return probed
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    monkeypatch.setattr(torch.cuda.CUDAGraph, "replay", counted)
+    step, graphed = graph_gaps_within_eager(build, net, opt, batches)
+    assert list(step.graphs.graphs) == [wavenet_graph_key(net, batches[0])]
+    assert len(replays) == len(batches) - 1
+    losses = [s["metrics"]["loss"].item() for s in graphed]
+    assert len(set(losses)) == len(losses) and all(np.isfinite(losses))
+    return graphed
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("extra,per_sample,use_gc", [
+    ("", False, False),
+    ("", True, False),
+    (",ema_decay=0.99", False, False),
+    ("", False, True),
+], ids=["frame-rate-mels", "per-sample-mels", "ema", "gc"])
+def test_graphed_wavenet_step_equals_eager(cuda, extra, per_sample, use_gc, monkeypatch):
+    """The vocoder's step as a CUDA graph over four batches of one shape
+    (an eager step, the step that captures and replays, two replays):
+    the losses, grad_norms, params, Adam's moments and EMA equal two eager
+    runs' within what those differ by (bit for bit when they agree, under
+    cuDNN's deterministic algorithms), with frame-rate mels and their
+    phase, with per-sample mels (the GTA layout), with an EMA, and with
+    gc, where a speaker id outside the table raises before the graph runs
+    as it does in the eager step."""
+    cfg = load_config("wavenet").parse(WN_GRAPH + extra)
+    batches = [wavenet_graph_batch(k, cfg, per_sample) for k in range(4)]
+    bad = None
+    if use_gc:
+        bad = wavenet_graph_batch(9, cfg, per_sample, ids=[0, cfg.gc_category_cardinality, 1])
+    graphed = wavenet_graphs_equal_eager(cfg, batches, monkeypatch, use_gc, bad)
+    if extra:
+        assert not torch.equal(graphed[-1]["ema"]["post2"][0], graphed[0]["ema"]["post2"][0])
+
+
+@pytest.mark.gpu
+def test_graphed_wavenet_step_at_published_widths_equals_eager(cuda, monkeypatch):
+    """The ``wavenet_vocoder`` configuration's step (50 layers, lc 80,
+    batch 4, windows of 5,117 + 20,480 = 25,597 samples, TF32 off as the
+    ``wavenet.train`` cell runs): an eager step, a capture, two replays,
+    equal to two eager runs' steps within what those differ by."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = load_config("wavenet").parse(WN_PUBLISHED)
+    batches = [wavenet_graph_batch(k, cfg) for k in range(4)]
+    assert batches[0].audio.shape == (4, 25597)
+    wavenet_graphs_equal_eager(cfg, batches, monkeypatch)
+
+
+@pytest.mark.gpu
+def test_graphed_wavenet_step_captures_when_the_cache_holds_the_card(cuda):
+    """After the eager first step the card's memory is taken into the
+    caching allocator and freed there (as another model's training in the
+    same process leaves it): the capture, which cannot release cached
+    blocks to the card while it runs, still gets its pool, and the
+    replays give the eager steps' losses."""
+    from nspeech_tpu_torch.train.loop import build_wavenet_train_step
+    from nspeech_tpu_torch.train.optim import make_optimizer
+
+    cfg = load_config("wavenet").parse(WN_GRAPH)
+    net = WaveNet(cfg)
+    opt, sched = make_optimizer(cfg, "wavenet")
+    batches = [wavenet_graph_batch(k, cfg) for k in range(3)]
+
+    def hold_the_card(k, metrics):
+        if k:
+            return
+        held = []
+        for size in (1 << 30, 1 << 25, 1 << 20):     # the last in 2 MB segments
+            with contextlib.suppress(torch.OutOfMemoryError):
+                while True:
+                    held.append(torch.empty(size, dtype=torch.uint8, device=cuda))
+        del held
+        assert torch.cuda.mem_get_info()[0] < 1 << 22
+
+    try:
+        step = build_wavenet_train_step(net, opt, cfg, sched, use_lc=True)
+        graphed = graph_run(step, net, opt, batches, hold_the_card)
+        assert len(step.graphs.graphs) == 1
+    finally:
+        torch.cuda.empty_cache()
+    eager = graph_run(step.graphs.step, net, opt, batches)
+    assert [s["metrics"]["loss"].item() for s in graphed] == pytest.approx(
+        [s["metrics"]["loss"].item() for s in eager], rel=1e-6)
+
+
+@pytest.mark.gpu
+def test_data_parallel_wavenet_step_stays_eager(cuda):
+    """A vocoder step with ``dp`` (one rank over NCCL) runs the eager
+    step: no graph, no static state, and the plain step's loss."""
+    from nspeech_tpu_torch.train.loop import build_wavenet_train_step
+    from nspeech_tpu_torch.train.optim import make_optimizer
+
+    cfg = load_config("wavenet").parse(WN_GRAPH)
+    net = WaveNet(cfg)
+    opt, sched = make_optimizer(cfg, "wavenet")
+    batches = [wavenet_graph_batch(0, cfg)] * 2
+    with one_rank(cuda) as dp:
+        step = build_wavenet_train_step(net, opt, cfg, sched, use_lc=True, dp=dp)
+        got = graph_run(step, net, opt, batches)
+        assert step.graphs.static is None and not step.graphs.graphs
+    plain = graph_run(build_wavenet_train_step(net, opt, cfg, sched, use_lc=True).graphs.step,
+                      net, opt, batches)
     assert [r["metrics"]["loss"].item() for r in got] == pytest.approx(
         [r["metrics"]["loss"].item() for r in plain], rel=1e-5)

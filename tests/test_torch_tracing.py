@@ -24,7 +24,9 @@ marked ``gpu``.
 - ``gpu``: a span's ``t0_ns`` and its ``nspeech:`` event in the same
   profile agree within 100 us; a kernel launched inside a span starts on
   the card after the span's ``t0_ns``; the benchmark's ``Tracer`` counts
-  the same kernel launches over a train step with and without spans.
+  the same kernel launches with and without spans over a Tacotron step
+  that captures its CUDA graph and a WaveNet step that replays one, and
+  those steps record ``train.replay`` and, for the capture, its phases.
 
 This file imports no JAX, so the ``gpu`` tests run where only PyTorch is
 installed:
@@ -32,8 +34,10 @@ installed:
     python -m pytest tests/test_torch_tracing.py -m gpu -q --noconftest
 """
 
+import tempfile
 import threading
 import time
+from pathlib import Path
 from types import SimpleNamespace
 
 import numpy as np
@@ -331,9 +335,10 @@ def test_feeder_records_take_and_make(tmp_path):
     assert makes and all(r.thread != takes[0].thread for r in makes)
 
 
-def _wavenet_setup(tmp_path):
-    """A vocoder step and its feeder's stream over clips of 6,000 samples,
-    trimmed to 5,632: two windows of 9 + 2,000 samples each, one batch."""
+def _wavenet_setup(tmp_path, device="cpu"):
+    """A vocoder step, its state on ``device`` and its feeder's stream over
+    clips of 6,000 samples, trimmed to 5,632: two windows of 9 + 2,000
+    samples each, one batch."""
     from scipy.io import wavfile
 
     (tmp_path / "wavs").mkdir()
@@ -351,7 +356,7 @@ def _wavenet_setup(tmp_path):
     step_fn = build_wavenet_train_step(net, optimizer, cfg, schedule=schedule,
                                        use_lc=True)
     feeder = WaveNetFeeder({"ljspeech": str(tmp_path)}, net.receptive_field, cfg)
-    return step_fn, create_state(net, optimizer, 0), feeder.batches()
+    return step_fn, create_state(net, optimizer, 0, device=device), feeder.batches()
 
 
 def test_wavenet_step_and_feeder_record_their_phases(tmp_path):
@@ -472,6 +477,27 @@ def test_metric_reads_the_spans(metric, monkeypatch):
     assert read(_run(), None) is None
 
 
+@pytest.mark.parametrize("metric,cell", [("graph_replay_share.train", "t2wn.train"),
+                                         ("graph_replay_share.wavenet_train", "wavenet.train")])
+def test_replay_share_counts_the_replays_alone(metric, cell, monkeypatch):
+    """A step that captures its graph records ``train.replay`` with
+    ``captured`` true and is not counted; eager steps record none."""
+    read = core.module("metrics", metric).read
+    traced = Run(window_s=10.0, records=[], counters={}, trace={},
+                 info={"traced": {"steps": 3}})
+    assert read(_run(), None) is None                  # no device trace
+    assert read(traced, None) == 0.0                   # eager steps
+    _recorded([("train.replay", BASE + k, BASE + k + 0.1,
+                {"captured": k == 0, "shape": (4, 25597)}) for k in range(3)])
+    assert read(traced, None) == pytest.approx(200.0 / 3, rel=1e-9)
+    monkeypatch.setattr(profiling, "_dropped", 1)      # a part of the window
+    assert read(traced, None) is None
+    monkeypatch.delattr(profiling, "spans")            # a program without them
+    assert read(traced, None) is None
+    m = {m["name"]: m for m in core.manifest()["per_layer"]}[metric]
+    assert (m["source"], m["layer"], m["workloads"]) == ("program_span", "train step", [cell])
+
+
 def test_metrics_are_in_the_manifest_with_their_cells():
     per_layer = {m["name"]: m for m in core.manifest()["per_layer"]}
     cells = {"stream": "t2wn.stream", "train": "t2wn.train",
@@ -518,34 +544,63 @@ def test_spans_share_the_device_traces_clock(card):
     assert y.shape == x.shape
 
 
-@pytest.mark.gpu
-def test_tracer_counts_the_same_launches_with_and_without_spans(card, monkeypatch):
+def _traced_step(step_fn, state, data, warm, device):
+    """``warm`` steps, then one step under the benchmark's ``Tracer``, each
+    on a fresh copy of the batch (``data()``, made before the trace):
+    the trace's summary."""
     from benchmark.harness.trace import Tracer
 
-    step_fn, state, batch = _train_setup(card)
-
-    def traced():
-        nonlocal state
-        data = batch_to_device(batch, card)
-        state, metrics = step_fn(state, data, torch.Generator(card).manual_seed(0))
+    for _ in range(warm):
+        state, metrics = step_fn(state, data(), torch.Generator(device).manual_seed(0))
         float(metrics["loss"])
-        tracer = Tracer()
-        data = batch_to_device(batch, card)
-        tracer.start()
-        state, metrics = step_fn(state, data, torch.Generator(card).manual_seed(0))
-        float(metrics["loss"])
-        tracer.stop()
-        return tracer.summary()
+    tracer = Tracer()
+    batch = data()
+    tracer.start()
+    state, metrics = step_fn(state, batch, torch.Generator(device).manual_seed(0))
+    float(metrics["loss"])
+    tracer.stop()
+    return tracer.summary()
 
-    with_spans = traced()
-    assert len(profiling.spans()) == 4
+
+@pytest.mark.gpu
+def test_tracer_counts_the_same_launches_with_and_without_spans(card, monkeypatch, tmp_path):
+    """Over a Tacotron-2 step that captures its graph (a shape's second
+    step) and a WaveNet step that replays one (its third), each from a
+    fresh step and state, the ``Tracer`` counts the same kernels with
+    spans and without. With spans the capturing step records
+    ``train.replay`` (``captured`` true) and the four phases of its
+    capture under it, the replay ``train.replay`` alone."""
+    def taco():
+        step_fn, state, batch = _train_setup(card)
+        return _traced_step(step_fn, state, lambda: batch_to_device(batch, card), 1, card)
+
+    def vocoder():
+        step_fn, state, stream = _wavenet_setup(Path(tempfile.mkdtemp(dir=tmp_path)), card)
+        batch = next(stream)
+        stream.close()
+        return _traced_step(step_fn, state, lambda: wavenet_batch_to_device(batch, card),
+                            2, card)
+
+    with_spans = {"taco": taco()}
+    recs = profiling.spans()
+    (replay,) = [r for r in recs if r.name == "train.replay"]
+    assert replay.attrs == {"captured": True, "shape": (2, 12, 20)}
+    phases = sorted((r for r in recs if r is not replay), key=lambda r: r.t0_ns)
+    assert [r.name for r in phases] == ["train.forward", "train.backward",
+                                        "train.merge", "train.update"]
+    assert all(r.parent == replay.id for r in phases)
+    profiling.clear()
+    with_spans["vocoder"] = vocoder()
+    (replay,) = profiling.spans()
+    assert replay.name == "train.replay" and replay.attrs["captured"] is False
     profiling.clear()
     monkeypatch.setattr(profiling, "_torch_profiler",
                         SimpleNamespace(_is_profiler_enabled=False))
-    without = traced()
+    without = {"taco": taco(), "vocoder": vocoder()}
     assert profiling.spans() == []
-    assert with_spans["launches"] == without["launches"] > 0
-    assert {k: v[0] for k, v in with_spans["kernels"].items()} == {
-        k: v[0] for k, v in without["kernels"].items()}
-    assert not any(k.startswith(profiling.SPAN_PREFIX) for k in with_spans["kernels"])
-    assert with_spans["busy_s"] == pytest.approx(without["busy_s"], rel=0.1)
+    for model, got in with_spans.items():
+        assert got["launches"] == without[model]["launches"] > 0, model
+        assert {k: v[0] for k, v in got["kernels"].items()} == {
+            k: v[0] for k, v in without[model]["kernels"].items()}, model
+        assert not any(k.startswith(profiling.SPAN_PREFIX) for k in got["kernels"])
+        assert got["busy_s"] == pytest.approx(without[model]["busy_s"], rel=0.1), model

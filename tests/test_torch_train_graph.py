@@ -10,6 +10,11 @@
   the key of a graph changes with the padded shapes, ``deferred_dw``,
   the compute dtype, scheduled sampling and the generator, and with
   nothing else.
+- The same for the WaveNet step (``wavenet_graph_key``): the CPU and
+  data-parallel steps stay eager, and the key changes with the shapes
+  of ``audio`` and ``mel``, whether there is a ``mel_phase`` and the
+  compute dtype, and with nothing else (the conditioning, the L2 term
+  and the EMA are fixed when the step is built).
 
 The graphs themselves run on the card only: ``tests/test_torch_gpu.py``."""
 
@@ -20,8 +25,9 @@ import pytest
 import torch
 
 from nspeech_tpu_torch.config import load_config
-from nspeech_tpu_torch.models import Tacotron2
-from nspeech_tpu_torch.train.loop import TacotronBatch, graph_key
+from nspeech_tpu_torch.models import Tacotron2, WaveNet
+from nspeech_tpu_torch.train.loop import (TacotronBatch, WaveNetDeviceBatch,
+                                          graph_key, wavenet_graph_key)
 from nspeech_tpu_torch.train.optim import Adam, exponential_halflife_schedule
 
 
@@ -112,3 +118,66 @@ def test_cuda_step_keys_its_padded_shapes():
 def test_what_changes_the_captured_work_changes_the_key(case, other):
     key = graph_key(MODEL, _batch("cuda"), GEN, True)
     assert other() not in (None, key), case
+
+
+def _wn_batch(device, n=4, window=2048, frames=12, phase=True, per_sample=False):
+    """A WaveNet batch's shapes and device, as ``wavenet_graph_key`` reads
+    them: frame-rate mel rows with their phase, or per-sample rows (the
+    GTA layout) without."""
+    def t(*shape):
+        return SimpleNamespace(shape=shape, device=torch.device(device))
+    mel = t(n, window, 80) if per_sample else t(n, frames, 80)
+    return WaveNetDeviceBatch(t(n, window), t(n), mel,
+                              t(n) if phase and not per_sample else None)
+
+
+def _vocoder(hparams=""):
+    return WaveNet(load_config("wavenet").parse("lc_channels=80" + hparams))
+
+
+VOCODER = _vocoder()
+
+
+@pytest.mark.parametrize("case,batch,kw", [
+    ("cpu", _wn_batch("cpu"), {}),
+    ("cpu, per-sample mels", _wn_batch("cpu", per_sample=True), {}),
+    ("data parallel", _wn_batch("cuda"), {"dp": object()}),
+])
+def test_eager_wavenet_steps_take_no_graph(case, batch, kw):
+    assert wavenet_graph_key(VOCODER, batch, **kw) is None, case
+
+
+@pytest.mark.parametrize("device", ["cuda", "cuda:0", "cuda:1"])
+def test_cuda_wavenet_step_keys_its_shapes(device):
+    key = wavenet_graph_key(VOCODER, _wn_batch("cuda"))
+    assert key is not None
+    assert wavenet_graph_key(VOCODER, _wn_batch(device)) == key
+
+
+@pytest.mark.parametrize("case,other", [
+    ("another window", lambda: _wn_batch("cuda", window=4096)),
+    ("another batch", lambda: _wn_batch("cuda", n=8)),
+    ("more mel rows", lambda: _wn_batch("cuda", frames=20)),
+    ("no mel_phase", lambda: _wn_batch("cuda", phase=False)),
+    ("per-sample mels", lambda: _wn_batch("cuda", per_sample=True)),
+])
+def test_what_changes_the_captured_wavenet_work_changes_the_key(case, other):
+    key = wavenet_graph_key(VOCODER, _wn_batch("cuda"))
+    assert wavenet_graph_key(VOCODER, other()) not in (None, key), case
+
+
+def test_the_wavenet_key_changes_with_the_compute_dtype():
+    key = wavenet_graph_key(VOCODER, _wn_batch("cuda"))
+    bf16 = wavenet_graph_key(_vocoder(",compute_dtype=bfloat16"), _wn_batch("cuda"))
+    assert bf16 not in (None, key)
+
+
+@pytest.mark.parametrize("case,hparams", [
+    ("gc conditioning", ",gc_channels=16,gc_category_cardinality=4"),
+    ("an EMA", ",ema_decay=0.999"),
+    ("an L2 term", ",l2_regularization_strength=0.001"),
+    ("another batch size and window in the hparams", ",batch_size=8,sample_size=4096"),
+])
+def test_what_the_step_fixes_leaves_the_wavenet_key(case, hparams):
+    key = wavenet_graph_key(VOCODER, _wn_batch("cuda"))
+    assert wavenet_graph_key(_vocoder(hparams), _wn_batch("cuda")) == key, case
