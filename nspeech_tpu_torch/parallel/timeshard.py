@@ -19,8 +19,6 @@ time axis): the global logits are the ranks' chunks in rank order.
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
-
 import torch
 import torch.distributed as dist
 
@@ -114,37 +112,30 @@ def build_time_sharded_wavenet_step(net, optimizer, dp,
     time-sharded windows: the batch and state of
     ``train/loop.py`` ``build_wavenet_train_step``, with the audio (and
     lc) time axis sharded over the ranks of ``dp`` instead of the batch
-    axis. Every rank passes the whole batch and leaves with the same
-    state: the gradients and the loss are averaged over the ranks (each
-    rank's cross-entropy is a mean over equal chunks). Batches in the
-    feeder's frame-rate lc layout (``mel_phase`` set) are upsampled on
-    the device first: pass ``cfg`` (for the hop length). Metrics:
-    ``loss``, ``grad_norm`` and ``learning_rate``, as JAX's."""
+    axis: the time-sharded gradients over the train step's core
+    (``train/loop.py`` ``build_train_step``, eager). Every rank passes the
+    whole batch and leaves with the same state: the gradients and the
+    loss are averaged over the ranks (each rank's cross-entropy is a mean
+    over equal chunks). Batches in the feeder's frame-rate lc layout
+    (``mel_phase`` set) are upsampled on the device first: pass ``cfg``
+    (for the hop length). Metrics: ``loss``, ``grad_norm``,
+    ``grad_norms`` and ``learning_rate``."""
     from nspeech_tpu_torch.ops.upsample import batch_lc
-    from nspeech_tpu_torch.train.loop import TrainState, _grads, _trainable, ema_update
-    from nspeech_tpu_torch.train.optim import apply_updates, global_norm
+    from nspeech_tpu_torch.train.loop import autograd_grads, build_train_step, trainable
 
     logits_fn = make_time_sharded_logits(net, dp, use_gc, use_lc)
 
-    def step_fn(state: TrainState, batch, generator=None) -> Tuple[TrainState, Dict]:
-        del generator
-        params = _trainable(state.params)
+    def grads_fn(state, batch, generator):
+        params = trainable(state.params)
         logits, targets = logits_fn(
             params, batch.audio,
             gc_ids=batch.speaker_ids if use_gc else None,
             lc=batch_lc(batch, cfg) if use_lc else None)
         loss, _ = net.loss(logits, targets)
-        grads = _grads(loss, params)
+        grads = autograd_grads(loss, params)
         with torch.no_grad():
-            grads = collectives.average_grads(grads, dp)
-            metrics = collectives.average_metrics({"loss": loss.detach()}, dp)
-            updates, new_opt = optimizer.update(grads, state.opt_state)
-            new_params = apply_updates(state.params, updates)
-            metrics["grad_norm"] = global_norm(grads)
-            if schedule is not None:
-                metrics["learning_rate"] = float(schedule(state.step))
-            return TrainState(state.step + 1, new_params, state.bn_state,
-                              new_opt, ema_update(state.ema_params, new_params,
-                                                  ema_decay)), metrics
+            return (collectives.average_grads(grads, dp),
+                    collectives.average_metrics({"loss": loss.detach()}, dp),
+                    state.bn_state)
 
-    return step_fn
+    return build_train_step(grads_fn, optimizer, schedule, ema_decay, graphed=False)

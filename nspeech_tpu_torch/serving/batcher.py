@@ -88,19 +88,46 @@ def _group_span(q: queue.Queue, group):
         yield
 
 
-class DynamicBatcher:
+class _Batcher:
+    """The worker both batchers share: one thread takes a window of
+    requests (:func:`_gather`), splits it (:func:`_partition`) and hands
+    each group to the subclass's ``_dispatch_group`` under its spans."""
+
+    def __init__(self, max_batch: int, window_ms: float, name: str):
+        self.max_batch = max(1, int(max_batch))
+        self.window = max(0.0, float(window_ms)) / 1000.0
+        self._q: queue.Queue = queue.Queue()
+        self.stats = {"requests": 0, "batches": 0, "max_batch_seen": 0}
+        self._worker = threading.Thread(target=self._run, daemon=True, name=name)
+        self._worker.start()
+
+    def _enqueue(self, text: str, speaker_id, sink) -> None:
+        if not self._worker.is_alive():
+            raise RuntimeError(f"{type(self).__name__} worker thread is dead")
+        self._q.put(_Request(text, speaker_id, sink, profiling.stamp()))
+
+    def _run(self) -> None:
+        while True:
+            batch, stop = _gather(self._q, self.max_batch, self.window)
+            for group in _partition(batch):
+                with _group_span(self._q, group):
+                    self._dispatch_group(group)
+            if stop:
+                return
+
+    def _count(self, group) -> None:
+        self.stats["requests"] += len(group)
+        self.stats["batches"] += 1
+        self.stats["max_batch_seen"] = max(self.stats["max_batch_seen"], len(group))
+
+
+class DynamicBatcher(_Batcher):
     def __init__(self, synthesizer, max_batch: int = 8,
                  window_ms: float = 10.0):
         if not hasattr(synthesizer, "synthesize_batch"):
             raise ValueError("synthesizer has no synthesize_batch")
         self._synth = synthesizer
-        self.max_batch = max(1, int(max_batch))
-        self.window = max(0.0, float(window_ms)) / 1000.0
-        self._q: queue.Queue = queue.Queue()
-        self.stats = {"requests": 0, "batches": 0, "max_batch_seen": 0}
-        self._worker = threading.Thread(target=self._run, daemon=True,
-                                        name="dynamic-batcher")
-        self._worker.start()
+        super().__init__(max_batch, window_ms, "dynamic-batcher")
 
     # --- single-request surface (what the demo server's routes call) ------
 
@@ -108,10 +135,8 @@ class DynamicBatcher:
                    timeout: Optional[float] = 600.0):
         """Enqueue and wait; returns (wav, mel, lin) like ``Synthesizer``.
         The timeout keeps a dead worker from blocking callers forever."""
-        if not self._worker.is_alive():
-            raise RuntimeError("DynamicBatcher worker thread is dead")
         fut: Future = Future()
-        self._q.put(_Request(text, speaker_id, fut, profiling.stamp()))
+        self._enqueue(text, speaker_id, fut)
         return fut.result(timeout=timeout)
 
     def synthesize_batch(self, texts, speaker_ids=None):
@@ -127,27 +152,13 @@ class DynamicBatcher:
         self._q.put(None)
         self._worker.join(timeout=5.0)
 
-    # --- worker ----------------------------------------------------------
-
-    def _run(self) -> None:
-        while True:
-            batch, stop = _gather(self._q, self.max_batch, self.window)
-            for group in _partition(batch):
-                with _group_span(self._q, group):
-                    self._dispatch_group(group)
-            if stop:
-                return
-
     def _dispatch_group(self, batch, _retry: bool = False) -> None:
         texts = [r.text for r in batch]
         speakers = [r.speaker_id for r in batch]
         if not _retry:
             # a failed window re-runs its items one by one; counting the
             # retries would book every window-mate twice in /stats
-            self.stats["requests"] += len(batch)
-            self.stats["batches"] += 1
-            self.stats["max_batch_seen"] = max(self.stats["max_batch_seen"],
-                                               len(batch))
+            self._count(batch)
         try:
             wavs, mels, lins = self._synth.synthesize_batch(texts, speakers)
         except Exception as e:
@@ -168,7 +179,7 @@ class DynamicBatcher:
 _STREAM_END = object()
 
 
-class StreamBatcher:
+class StreamBatcher(_Batcher):
     """Dynamic batching for streaming requests.
 
     Wraps a ``StreamingTTS``: concurrent callers iterate :meth:`stream`;
@@ -188,22 +199,14 @@ class StreamBatcher:
         if not hasattr(streamer, "stream_batch"):
             raise ValueError("streamer has no stream_batch")
         self._tts = streamer
-        self.max_batch = max(1, int(max_batch))
-        self.window = max(0.0, float(window_ms)) / 1000.0
-        self._q: queue.Queue = queue.Queue()
-        self.stats = {"requests": 0, "batches": 0, "max_batch_seen": 0}
-        self._worker = threading.Thread(target=self._run, daemon=True,
-                                        name="stream-batcher")
-        self._worker.start()
+        super().__init__(max_batch, window_ms, "stream-batcher")
 
     def stream(self, text: str, speaker_id: int = -1,
                timeout: Optional[float] = 600.0):
         """Enqueue and yield waveform chunks as the batched pipeline makes
         them. ``timeout`` bounds the wait for each chunk."""
-        if not self._worker.is_alive():
-            raise RuntimeError("StreamBatcher worker thread is dead")
         out: queue.Queue = queue.Queue()
-        self._q.put(_Request(text, speaker_id, out, profiling.stamp()))
+        self._enqueue(text, speaker_id, out)
         while True:
             try:
                 item = out.get(timeout=timeout)
@@ -222,25 +225,11 @@ class StreamBatcher:
     def close(self) -> None:
         self._q.put(None)
 
-    # --- worker ----------------------------------------------------------
-
-    def _run(self) -> None:
-        while True:
-            batch, stop = _gather(self._q, self.max_batch, self.window)
-            for group in _partition(batch):
-                with _group_span(self._q, group):
-                    self._dispatch_group(group)
-            if stop:
-                return
-
     def _dispatch_group(self, batch) -> None:
         texts = [r.text for r in batch]
         speakers = [r.speaker_id for r in batch]
         queues = [r.sink for r in batch]
-        self.stats["requests"] += len(batch)
-        self.stats["batches"] += 1
-        self.stats["max_batch_seen"] = max(self.stats["max_batch_seen"],
-                                           len(batch))
+        self._count(batch)
         try:
             for chunks in self._tts.stream_batch(texts, speakers):
                 for q, c in zip(queues, chunks):

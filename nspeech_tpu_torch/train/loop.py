@@ -37,11 +37,15 @@ Adam, the EMA). The WaveNet step records the same phases but
 ``train.merge``. They time the host's dispatch of each phase; the card
 runs behind it. A step that replays a CUDA graph records
 ``train.replay`` in their place (attributes ``captured``, true on the
-step that captured its graph, and ``shape``, the key's first three
-entries: a Tacotron step's padded ``(N, T_in, T_out)``, a WaveNet step's
-audio and mel shapes and whether it has ``mel_phase``); the step that
-captures records the phase spans of its capture under it, and a shape's
-first step, which runs eagerly, records them as the eager step does.
+step that captured its graph, and ``shape``, the shapes of the batch's
+fields, None for a field that is None); the step that captures records
+the phase spans of its capture under it, and a shape's first step, which
+runs eagerly, records them as the eager step does.
+
+Both models' steps, and the time-sharded vocoder step of
+``parallel/timeshard.py``, are one model-specific gradient function over
+one step core (:func:`build_train_step`): the norms, the clip and Adam,
+the EMA, and the CUDA graphs.
 """
 
 from __future__ import annotations
@@ -51,7 +55,6 @@ from typing import Any, Callable, Dict, NamedTuple, Optional
 import numpy as np
 import torch
 
-from nspeech_tpu_torch.ops.policy import compute_dtype
 from nspeech_tpu_torch.parallel import collectives
 from nspeech_tpu_torch.parallel.tensor import sharded_leaves
 from nspeech_tpu_torch.train.optim import apply_updates, global_norm
@@ -86,31 +89,35 @@ class WaveNetDeviceBatch(NamedTuple):
     mel_phase: Optional[torch.Tensor]    # [B] int64, None per-sample
 
 
-def _move(x: np.ndarray, dtype, device: torch.device) -> torch.Tensor:
-    """A host array on ``device``; on CUDA through pinned memory without
-    blocking the host."""
-    t = torch.from_numpy(np.ascontiguousarray(x)).to(dtype)
-    if device.type == "cuda":
-        return t.pin_memory().to(device, non_blocking=True)
-    return t
-
-
-def batch_to_device(batch, device) -> TacotronBatch:
-    """The Tacotron fields of a ``data.feeder.Batch`` (numpy) on
-    ``device``. A :class:`TacotronBatch` is already there and passes."""
-    if isinstance(batch, TacotronBatch):
+def _to_device(batch, kind, device):
+    """The ``kind`` fields of a feeder batch (numpy) on ``device``: integer
+    fields as int64, the others as float32, on CUDA through pinned memory
+    without blocking the host; a field that is None stays None. A batch of
+    ``kind`` is already there and passes."""
+    if isinstance(batch, kind):
         return batch
     device = torch.device(device)
 
-    def move(x, dtype):
-        return _move(x, dtype, device)
+    def move(x):
+        t = torch.from_numpy(np.ascontiguousarray(x))
+        t = t.to(torch.float32 if t.is_floating_point() else torch.int64)
+        if device.type == "cuda":
+            return t.pin_memory().to(device, non_blocking=True)
+        return t
 
     with profiling.span("train.to_device"):
-        return TacotronBatch(move(batch.inputs, torch.int64),
-                             move(batch.input_lengths, torch.int64),
-                             move(batch.speaker_ids, torch.int64),
-                             move(batch.mel_targets, torch.float32),
-                             move(batch.linear_targets, torch.float32))
+        return kind(*(None if x is None else move(x)
+                      for x in (getattr(batch, f) for f in kind._fields)))
+
+
+def batch_to_device(batch, device) -> TacotronBatch:
+    """The Tacotron fields of a ``data.feeder.Batch`` on ``device``."""
+    return _to_device(batch, TacotronBatch, device)
+
+
+def wavenet_batch_to_device(batch, device) -> WaveNetDeviceBatch:
+    """A ``data.wavenet_feeder.WaveNetBatch`` on ``device``."""
+    return _to_device(batch, WaveNetDeviceBatch, device)
 
 
 def create_state(model, optimizer, seed: int, ema: bool = False,
@@ -139,28 +146,14 @@ def leaf_norms(tree) -> torch.Tensor:
                         for x in tree_leaves(tree)])
 
 
-def wavenet_batch_to_device(batch, device) -> WaveNetDeviceBatch:
-    """A ``data.wavenet_feeder.WaveNetBatch`` (numpy) on ``device``. A
-    :class:`WaveNetDeviceBatch` is already there and passes."""
-    if isinstance(batch, WaveNetDeviceBatch):
-        return batch
-    device = torch.device(device)
-    with profiling.span("train.to_device"):
-        return WaveNetDeviceBatch(
-            _move(batch.audio, torch.float32, device),
-            _move(batch.speaker_ids, torch.int64, device),
-            _move(batch.mel, torch.float32, device),
-            None if batch.mel_phase is None
-            else _move(batch.mel_phase, torch.int64, device))
-
-
-def _trainable(params):
+def trainable(params):
+    """A copy of ``params`` whose leaves autograd differentiates."""
     return tree_map(lambda p: p.detach().requires_grad_(True), params)
 
 
-def _grads(loss: torch.Tensor, params):
-    """d loss / d params as a tree like ``params`` (zeros for a leaf the
-    loss does not reach)."""
+def autograd_grads(loss: torch.Tensor, params):
+    """d loss / d params (a :func:`trainable` tree) as a tree like
+    ``params`` (zeros for a leaf the loss does not reach)."""
     leaves = tree_leaves(params)
     grads = dict(zip(map(id, leaves),
                      torch.autograd.grad(loss, leaves, allow_unused=True)))
@@ -192,7 +185,7 @@ def tacotron_grads(model, state: TrainState, batch: TacotronBatch,
     if deferred_dw is None:
         deferred_dw = hasattr(model, "deferred_zero_inputs")
     taps = None
-    params = _trainable(state.params)
+    params = trainable(state.params)
     with collectives.data_parallel(dp), collectives.tensor_parallel(tp):
         with profiling.span("train.forward"):
             if deferred_dw:
@@ -207,7 +200,7 @@ def tacotron_grads(model, state: TrainState, batch: TacotronBatch,
             loss, metrics = model.loss(outputs, batch.mel_targets,
                                        batch.linear_targets)
         with profiling.span("train.backward"):
-            grads = _grads(loss, params)
+            grads = autograd_grads(loss, params)
     with torch.no_grad(), profiling.span("train.merge"):
         if taps is not None:
             grads = model.deferred_merge_grads(grads, taps)
@@ -229,19 +222,13 @@ def grad_norms(grads, tp=None, rules=()):
     return torch.sqrt(sq.sum()), torch.sqrt(sq)
 
 
-def graph_key(model, batch, generator, deferred_dw: bool, dp=None, tp=None):
-    """The key of the CUDA graph that a Tacotron step on ``batch`` replays,
-    or None where the step runs eagerly: a batch off CUDA, or a data- or
-    tensor-parallel step (their collectives stay outside graphs). The key
-    holds what changes the captured work: the padded shapes ``(N, T_in,
-    T_out)``, the compute dtype, ``deferred_dw``, the scheduled-sampling
-    ratio and whether there is a generator to draw from."""
-    if dp is not None or tp is not None or batch.inputs.device.type != "cuda":
-        return None
-    cfg = model.cfg
-    n, t_out = batch.mel_targets.shape[:2]
-    return (n, batch.inputs.shape[1], t_out, compute_dtype(cfg), bool(deferred_dw),
-            float(cfg.get("scheduled_sampling_ratio", 0.0)), generator is not None)
+def shape_key(batch, generator) -> tuple:
+    """The key of the CUDA graph that a step on ``batch`` replays: the
+    shape of each of the batch's fields (None for a field that is None)
+    and whether there is a generator to draw from. Everything else that
+    the captured work depends on is fixed when the step is built."""
+    return (tuple(None if x is None else tuple(x.shape) for x in batch),
+            generator is not None)
 
 
 def _donated(state: TrainState) -> tuple:
@@ -262,10 +249,10 @@ class _Graph(NamedTuple):
 
 
 class CudaGraphSteps:
-    """A train step as CUDA graphs, one per key (:func:`graph_key`,
-    :func:`wavenet_graph_key`), over one set of static state buffers on
-    the card. The batch is any NamedTuple of tensors on the card; a field
-    that is None (``WaveNetDeviceBatch.mel_phase`` per sample) stays None.
+    """A train step as CUDA graphs, one per :func:`shape_key`, over one set
+    of static state buffers on the card. The batch is any NamedTuple of
+    tensors on the card; a field that is None
+    (``WaveNetDeviceBatch.mel_phase`` per sample) stays None.
 
     A key's first call runs the step eagerly, on the stream that captures
     run on (the first such call sets up cuBLAS's workspaces and autograd's
@@ -276,7 +263,7 @@ class CudaGraphSteps:
     again, so a shape seen once is not captured. Each
     call copies the state into the static buffers unless it holds them; a
     replay copies the batch into the graph's static batch, Adam's scalars
-    (``Adam.scalars``) into 0-dim device tensors, and the caller's
+    (``Adam.scalars``) into its 0-dim device tensors, and the caller's
     generator state into the generator the graphs draw from (its draws
     are the eager step's; the caller's generator then stands where the
     eager step leaves it). The graph writes the new state into the static
@@ -285,8 +272,8 @@ class CudaGraphSteps:
     device value on the host cannot be captured: the WaveNet step checks
     its gc ids before the call."""
 
-    def __init__(self, step: Callable, optimizer, schedule=None):
-        self.step, self.optimizer, self.schedule = step, optimizer, schedule
+    def __init__(self, step: Callable, optimizer):
+        self.step, self.optimizer = step, optimizer
         self.graphs: Dict[tuple, _Graph] = {}
         self.seen: set = set()            # keys whose first call ran eagerly
         self.static = None                # _donated() trees on the card
@@ -294,16 +281,17 @@ class CudaGraphSteps:
         self.stream = self.pool = self.generator = None
 
     def __call__(self, state: TrainState, batch: NamedTuple,
-                 generator: Optional[torch.Generator], key: tuple):
+                 generator: Optional[torch.Generator]):
         if self.static is None:
-            self._start(state, batch[0].device)
+            self._start(state)
         self._take(state)
+        key = shape_key(batch, generator)
         if key not in self.graphs and key not in self.seen:
             self.seen.add(key)
             return self._eager(state, batch, generator)
         count = state.opt_state["count"]
         captured = key not in self.graphs
-        with profiling.span("train.replay", captured=captured, shape=key[:3]):
+        with profiling.span("train.replay", captured=captured, shape=key[0]):
             if captured:
                 self.graphs[key] = self._capture(state, generator, batch)
             g = self.graphs[key]
@@ -318,8 +306,6 @@ class CudaGraphSteps:
             if generator is not None:
                 generator.set_state(self.generator.get_state())
             metrics = {k: v.clone() for k, v in g.metrics.items()}
-        if self.schedule is not None:
-            metrics["learning_rate"] = float(self.schedule(state.step))
         return self._state(state.step + 1, count + 1), metrics
 
     def _state(self, step: int, count: int) -> TrainState:
@@ -327,20 +313,17 @@ class CudaGraphSteps:
         return TrainState(step, params, bn_state,
                           {"count": count, "mu": mu, "nu": nu}, ema)
 
-    def _start(self, state: TrainState, device) -> None:
+    def _start(self, state: TrainState) -> None:
         """The static buffers (shaped as ``state``'s trees), Adam's
         scalars, the capture stream, the graphs' pool and their
         generator."""
         self.static = tuple(None if tree is None else tree_map(torch.empty_like, tree)
                             for tree in _donated(state))
-        # Adam's scalars in the moments' dtype: a Python float meets a
-        # float64 moment in float64
-        dtype = torch.promote_types(tree_leaves(self.static[2])[0].dtype, torch.float32)
-        self.scalars = tuple(torch.zeros((), dtype=dtype, device=device)
-                             for _ in range(3))
-        self.stream = torch.cuda.Stream(device)
+        moment = tree_leaves(self.static[2])[0]
+        self.scalars = self.optimizer.scalar_tensors(0, moment)
+        self.stream = torch.cuda.Stream(moment.device)
         self.pool = torch.cuda.graph_pool_handle()
-        self.generator = torch.Generator(device)
+        self.generator = torch.Generator(moment.device)
 
     def _eager(self, state, batch, generator):
         main = torch.cuda.current_stream(batch[0].device)
@@ -390,8 +373,58 @@ class CudaGraphSteps:
                 torch._foreach_copy_(_leaves(self.static), _leaves(_donated(new)))
             finally:
                 graph.capture_end()
-        metrics.pop("learning_rate", None)
         return _Graph(graph, inputs, metrics)
+
+
+def build_train_step(grads_fn: Callable, optimizer, schedule=None,
+                     ema_decay: float = 0.0, tp=None, rules=(), graphed: bool = True):
+    """The step core: ``step_fn(state, batch, generator=None) -> (state,
+    metrics)`` from a model's gradient function ``grads_fn(state, batch,
+    generator) -> (grads, metrics, new_bn_state)``.
+
+    The update (span ``train.update``) takes the global norm and the
+    per-leaf norms once (:func:`grad_norms`; with ``tp`` the whole
+    gradient's, of the leaves ``rules`` shard), clips and steps Adam with
+    that norm, applies the update, moves the EMA with ``ema_decay``, and
+    adds the metrics ``grad_norm`` (before the clip) and ``grad_norms``;
+    ``learning_rate`` (a float, ``schedule(state.step)``) is added after
+    the step, eager or graphed.
+
+    With ``graphed`` a step on a CUDA batch runs as CUDA graphs
+    (:class:`CudaGraphSteps`, ``step_fn.graphs``, whose ``step`` is the
+    eager step); a step on a batch off CUDA runs eagerly. A data- or
+    tensor-parallel step is built with ``graphed`` false: its collectives
+    stay outside graphs."""
+
+    def eager(state: TrainState, batch: NamedTuple,
+              generator: Optional[torch.Generator], scalars=None):
+        grads, metrics, new_bn = grads_fn(state, batch, generator)
+        with torch.no_grad(), profiling.span("train.update"):
+            norm, norms = grad_norms(grads, tp, rules)
+            updates, new_opt = optimizer.update(grads, state.opt_state, norm,
+                                                scalars)
+            new_params = apply_updates(state.params, updates)
+            metrics["grad_norm"] = norm
+            metrics["grad_norms"] = norms
+            new_state = TrainState(
+                state.step + 1, new_params, new_bn, new_opt,
+                ema_update(state.ema_params, new_params, ema_decay))
+        return new_state, metrics
+
+    graphs = CudaGraphSteps(eager, optimizer)
+
+    def step_fn(state: TrainState, batch: NamedTuple,
+                generator: Optional[torch.Generator] = None):
+        if graphed and batch[0].device.type == "cuda":
+            new_state, metrics = graphs(state, batch, generator)
+        else:
+            new_state, metrics = graphs.step(state, batch, generator)
+        if schedule is not None:
+            metrics["learning_rate"] = float(schedule(state.step))
+        return new_state, metrics
+
+    step_fn.graphs = graphs
+    return step_fn
 
 
 def build_tacotron_train_step(model, optimizer, schedule=None,
@@ -399,7 +432,8 @@ def build_tacotron_train_step(model, optimizer, schedule=None,
                               deferred_dw: Optional[bool] = None, dp=None,
                               tp=None):
     """``step_fn(state, batch, generator) -> (state, metrics)`` for
-    Tacotron-1/2 on a :class:`TacotronBatch`. Dropout and scheduled
+    Tacotron-1/2 on a :class:`TacotronBatch`: :func:`tacotron_grads` over
+    the step core (:func:`build_train_step`). Dropout and scheduled
     sampling draw from ``generator`` (on the batch's device). The metrics
     stay on the device: the loss terms, ``grad_norm`` (before the clip),
     ``grad_norms`` (per leaf) and ``learning_rate`` (a float).
@@ -415,8 +449,10 @@ def build_tacotron_train_step(model, optimizer, schedule=None,
     branch, and the state (params, Adam's moments and the EMA) stays
     sliced.
 
-    On a CUDA batch without ``dp`` and ``tp`` the step runs as CUDA
-    graphs, one per padded shape (:func:`graph_key`,
+    The step reads its configuration once, when it is built: the model's
+    config (the compute dtype, the scheduled-sampling ratio) and these
+    arguments. On a CUDA batch without ``dp`` and ``tp`` the step runs as
+    CUDA graphs, one per padded shape (:func:`shape_key`,
     :class:`CudaGraphSteps`, ``step_fn.graphs``; a shape's first step
     runs eagerly, its second captures), and DONATES its state,
     as the JAX package's jitted step does (``donate_argnums=(0,)``): the
@@ -428,35 +464,11 @@ def build_tacotron_train_step(model, optimizer, schedule=None,
     if deferred_dw is None:
         deferred_dw = hasattr(model, "deferred_zero_inputs")
 
-    def eager(state: TrainState, batch: TacotronBatch,
-              generator: Optional[torch.Generator], scalars=None):
-        grads, metrics, new_bn = tacotron_grads(model, state, batch, generator,
-                                                deferred_dw, dp, tp)
-        with torch.no_grad(), profiling.span("train.update"):
-            norm, norms = grad_norms(grads, tp, model.tp_rules)
-            updates, new_opt = optimizer.update(grads, state.opt_state, norm,
-                                                scalars)
-            new_params = apply_updates(state.params, updates)
-            metrics["grad_norm"] = norm
-            metrics["grad_norms"] = norms
-            if schedule is not None:
-                metrics["learning_rate"] = float(schedule(state.step))
-            new_state = TrainState(
-                state.step + 1, new_params, new_bn, new_opt,
-                ema_update(state.ema_params, new_params, ema_decay))
-        return new_state, metrics
+    def grads_fn(state, batch, generator):
+        return tacotron_grads(model, state, batch, generator, deferred_dw, dp, tp)
 
-    graphs = CudaGraphSteps(eager, optimizer, schedule)
-
-    def step_fn(state: TrainState, batch: TacotronBatch,
-                generator: Optional[torch.Generator]):
-        key = graph_key(model, batch, generator, deferred_dw, dp, tp)
-        if key is None:
-            return eager(state, batch, generator)
-        return graphs(state, batch, generator, key)
-
-    step_fn.graphs = graphs
-    return step_fn
+    return build_train_step(grads_fn, optimizer, schedule, ema_decay, tp,
+                            model.tp_rules, graphed=dp is None and tp is None)
 
 
 def wavenet_grads(net, params, batch: WaveNetDeviceBatch, cfg,
@@ -470,7 +482,7 @@ def wavenet_grads(net, params, batch: WaveNetDeviceBatch, cfg,
     cross-entropies is the global one)."""
     from nspeech_tpu_torch.ops.upsample import batch_lc
 
-    params = _trainable(params)
+    params = trainable(params)
     with profiling.span("train.forward"):
         logits, targets = net.forward_train(
             params, batch.audio, gc_ids=batch.speaker_ids if use_gc else None,
@@ -478,7 +490,7 @@ def wavenet_grads(net, params, batch: WaveNetDeviceBatch, cfg,
         loss, metrics = net.loss(logits, targets, params=params,
                                  l2_strength=l2_strength)
     with profiling.span("train.backward"):
-        grads = _grads(loss, params)
+        grads = autograd_grads(loss, params)
     with torch.no_grad():
         metrics = {k: v.detach() for k, v in metrics.items()}
         if dp is not None:
@@ -487,71 +499,42 @@ def wavenet_grads(net, params, batch: WaveNetDeviceBatch, cfg,
     return grads, metrics
 
 
-def wavenet_graph_key(net, batch, dp=None):
-    """The key of the CUDA graph that a WaveNet step on ``batch`` replays,
-    or None where the step runs eagerly: a batch off CUDA, or a
-    data-parallel step (its collectives stay outside graphs). The key
-    holds what changes the captured work: the shapes of ``audio`` and
-    ``mel``, whether there is a ``mel_phase`` (the frame-rate layout
-    against the per-sample one) and the compute dtype; the step's
-    conditioning, L2 term and EMA are fixed when it is built."""
-    if dp is not None or batch.audio.device.type != "cuda":
-        return None
-    return (tuple(batch.audio.shape), tuple(batch.mel.shape),
-            batch.mel_phase is not None, compute_dtype(net.cfg))
-
-
 def build_wavenet_train_step(net, optimizer, cfg, schedule=None,
                              use_gc: bool = False, use_lc: bool = False,
                              l2_strength: Optional[float] = None,
                              ema_decay: float = 0.0, dp=None):
-    """``step_fn(state, batch, generator) -> (state, metrics)`` for WaveNet
-    on a :class:`WaveNetDeviceBatch`. The step is deterministic: it draws
-    nothing from ``generator``. Metrics as the Tacotron step's: ``loss``
-    (the cross-entropy; with L2 also ``l2_loss`` and ``total_loss``),
-    ``grad_norm``, ``grad_norms``, ``learning_rate``. With ``dp`` it is
-    the data-parallel step over this rank's windows
+    """``step_fn(state, batch, generator=None) -> (state, metrics)`` for
+    WaveNet on a :class:`WaveNetDeviceBatch`: :func:`wavenet_grads` over
+    the step core (:func:`build_train_step`). The step is deterministic:
+    it draws nothing from ``generator``. Metrics as the Tacotron step's:
+    ``loss`` (the cross-entropy; with L2 also ``l2_loss`` and
+    ``total_loss``), ``grad_norm``, ``grad_norms``, ``learning_rate``.
+    With ``dp`` it is the data-parallel step over this rank's windows
     (:func:`wavenet_grads`).
 
-    On a CUDA batch without ``dp`` the step runs as CUDA graphs, one per
-    :func:`wavenet_graph_key` (:class:`CudaGraphSteps`,
-    ``step_fn.graphs``; a shape's first step runs eagerly, its second
-    captures, every later one replays), and DONATES its state as the
-    Tacotron step does (:func:`build_tacotron_train_step`): the params,
-    Adam's moments and the EMA are updated in place in static buffers on
-    the card, and a state passed in that holds them is consumed. With
-    ``use_gc`` the speaker ids are checked on the host before the graph
-    runs, so an id outside the table raises as it does in the eager
-    step. Its kernels and their order are the eager step's."""
+    The step reads its configuration once, when it is built: ``cfg``, the
+    net's config (the compute dtype) and these arguments. On a CUDA batch
+    without ``dp`` it runs as CUDA graphs and DONATES its state as the
+    Tacotron step does (:func:`build_tacotron_train_step`); its windows
+    have one shape, so one graph serves a run. With ``use_gc`` the
+    speaker ids are checked on the host before each step, so an id
+    outside the table raises before a graph runs, as it does in the
+    eager step."""
 
-    def eager(state: TrainState, batch: WaveNetDeviceBatch, generator=None,
-              scalars=None):
-        del generator
+    def grads_fn(state, batch, generator):
         grads, metrics = wavenet_grads(net, state.params, batch, cfg, use_gc,
                                        use_lc, l2_strength, dp)
-        with torch.no_grad(), profiling.span("train.update"):
-            updates, new_opt = optimizer.update(grads, state.opt_state, None, scalars)
-            new_params = apply_updates(state.params, updates)
-            metrics["grad_norm"] = global_norm(grads)
-            metrics["grad_norms"] = leaf_norms(grads)
-            if schedule is not None:
-                metrics["learning_rate"] = float(schedule(state.step))
-            new_state = TrainState(
-                state.step + 1, new_params, state.bn_state, new_opt,
-                ema_update(state.ema_params, new_params, ema_decay))
-        return new_state, metrics
+        return grads, metrics, state.bn_state
 
-    graphs = CudaGraphSteps(eager, optimizer, schedule)
+    step = build_train_step(grads_fn, optimizer, schedule, ema_decay, graphed=dp is None)
 
     def step_fn(state: TrainState, batch: WaveNetDeviceBatch, generator=None):
-        key = wavenet_graph_key(net, batch, dp)
-        if key is None:
-            return eager(state, batch)
         if use_gc and net.gc_channels:
+            # on the host, as a graph cannot read them
             net.check_gc_ids(state.params, batch.speaker_ids)
-        return graphs(state, batch, None, key)
+        return step(state, batch)        # it draws nothing: its graph registers no generator
 
-    step_fn.graphs = graphs
+    step_fn.graphs = step.graphs
     return step_fn
 
 

@@ -89,15 +89,22 @@ class Adam:
         return (-float(self.schedule(count)), _bias_correction(self.b1, count + 1),
                 _bias_correction(self.b2, count + 1))
 
+    def scalar_tensors(self, count: int, moment: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        """:meth:`scalars` as 0-dim tensors on ``moment``'s device, in its
+        dtype promoted to float32 (a Python float meets a float64 moment
+        in float64)."""
+        dtype = torch.promote_types(moment.dtype, torch.float32)
+        return tuple(torch.full((), v, dtype=dtype, device=moment.device)
+                     for v in self.scalars(count))
+
     def update(self, grads, opt_state, norm=None,
                scalars=None) -> Tuple[object, Dict]:
         """(updates to add to the params, new optimizer state). The clip
         reads ``norm``, the global norm of the whole gradient:
         ``global_norm(grads)`` unless given (a tensor-parallel step's
         ``grads`` are one model rank's slices of it). ``scalars`` are
-        :meth:`scalars` of the count as 0-dim tensors on the device (a
-        CUDA graph's, filled before each replay) in place of the Python
-        floats: the update's bits are the same."""
+        :meth:`scalar_tensors` of the state's count (a CUDA graph's,
+        filled before each replay), made here unless given."""
         b1, b2 = self.b1, self.b2
         norm = global_norm(grads) if norm is None else norm
         clip = self.gradient_clip
@@ -107,17 +114,24 @@ class Adam:
         count = opt_state["count"] + 1
         mu = tree_map(lambda t, m: (1 - b1) * t + b1 * m, g, opt_state["mu"])
         nu = tree_map(lambda t, v: (1 - b2) * t * t + b2 * v, g, opt_state["nu"])
-        lr, c1, c2 = self.scalars(opt_state["count"]) if scalars is None else scalars
-        divide = torch.div
-        if isinstance(c1, torch.Tensor) and c1.is_cuda:
-            # PyTorch's CUDA kernels divide by a host scalar as a product
-            # with its reciprocal (rounded in the tensor's dtype); a device
-            # scalar gets the same product, and so the same bits
-            c1, c2, divide = torch.reciprocal(c1), torch.reciprocal(c2), torch.mul
+        if scalars is None:
+            scalars = self.scalar_tensors(opt_state["count"], tree_leaves(mu)[0])
+        lr, c1, c2 = scalars
+        by_c1, by_c2 = _divide_by(c1), _divide_by(c2)
         updates = tree_map(
-            lambda m, v: lr * (divide(m, c1) / (torch.sqrt(divide(v, c2)) + self.eps)),
-            mu, nu)
+            lambda m, v: lr * (by_c1(m) / (torch.sqrt(by_c2(v)) + self.eps)), mu, nu)
         return updates, {"count": count, "mu": mu, "nu": nu}
+
+
+def _divide_by(c: torch.Tensor) -> Callable[[torch.Tensor], torch.Tensor]:
+    """``x -> x / c`` for a 0-dim tensor ``c``, with the bits of PyTorch's
+    division by the Python float ``c`` holds. Its CUDA kernels divide by a
+    host scalar as a product with the scalar's reciprocal (rounded in the
+    tensor's dtype), so on CUDA this is that product; the CPU divides."""
+    if c.is_cuda:
+        r = torch.reciprocal(c)
+        return lambda x: torch.mul(x, r)
+    return lambda x: torch.div(x, c)
 
 
 def _bias_correction(decay: float, count: int) -> float:

@@ -586,7 +586,7 @@ def test_graphed_train_step_equals_eager(cuda, name, extra, deferred_dw, monkeyp
     gradients sum in one order); each shape's first step eager, its
     second captured (A and B; C, seen once, never), the last a replay
     alone; a step's metrics unchanged by the next step."""
-    from nspeech_tpu_torch.train.loop import build_tacotron_train_step
+    from nspeech_tpu_torch.train.loop import build_tacotron_train_step, shape_key
 
     monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
     cfg, model, opt, sched = graph_setup(extra, name)
@@ -606,9 +606,9 @@ def test_graphed_train_step_equals_eager(cuda, name, extra, deferred_dw, monkeyp
                                           deferred_dw=deferred_dw),
         model, opt, batches, check_kept)
     # steps 0, 1 and 3 run eagerly; 2 and 4 capture A and B; 5 replays A
-    assert sorted(k[:3] for k in step.graphs.graphs) == sorted(
-        (4,) + GRAPH_SHAPES[k] for k in (0, 1))
-    assert {k[:3] for k in step.graphs.seen} == {(4,) + s for s in GRAPH_SHAPES}
+    # keyed by the batches' shapes, with a generator
+    assert sorted(step.graphs.graphs) == sorted(shape_key(batches[k], True) for k in (0, 1))
+    assert step.graphs.seen == {shape_key(b, True) for b in batches}
     losses = [s["metrics"]["loss"].item() for s in graphed]
     assert len(set(losses)) == len(losses) and all(np.isfinite(losses))
 
@@ -621,7 +621,7 @@ def test_graphed_train_step_at_published_widths_equals_eager(cuda, monkeypatch):
     that captures and replays, and a replay, each on its own batch,
     equal to two eager runs' steps within what those differ by (bit for
     bit when they agree, under cuDNN's deterministic algorithms)."""
-    from nspeech_tpu_torch.train.loop import build_tacotron_train_step
+    from nspeech_tpu_torch.train.loop import build_tacotron_train_step, shape_key
     from nspeech_tpu_torch.train.optim import make_optimizer
 
     monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
@@ -634,7 +634,8 @@ def test_graphed_train_step_at_published_widths_equals_eager(cuda, monkeypatch):
     step, _ = graph_gaps_within_eager(
         lambda: build_tacotron_train_step(model, opt, sched, cfg.ema_decay),
         model, opt, batches)
-    assert [k[:3] for k in step.graphs.graphs] == [(cfg.batch_size, 160, 800)]
+    assert list(step.graphs.graphs) == [shape_key(batches[0], True)]
+    assert batches[0].mel_targets.shape[:2] == (cfg.batch_size, 800)
 
 
 @pytest.mark.gpu
@@ -759,7 +760,7 @@ def wavenet_graphs_equal_eager(cfg, batches, monkeypatch, use_gc=False, bad=None
     tries it at every step: it raises and nothing is captured or
     replayed. Asserts one graph, keyed by the batches' shapes, replayed
     from the second step on; returns the graphed run."""
-    from nspeech_tpu_torch.train.loop import build_wavenet_train_step, wavenet_graph_key
+    from nspeech_tpu_torch.train.loop import build_wavenet_train_step, shape_key
     from nspeech_tpu_torch.train.optim import make_optimizer
 
     net = WaveNet(cfg)
@@ -790,7 +791,7 @@ def wavenet_graphs_equal_eager(cfg, batches, monkeypatch, use_gc=False, bad=None
     monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
     monkeypatch.setattr(torch.cuda.CUDAGraph, "replay", counted)
     step, graphed = graph_gaps_within_eager(build, net, opt, batches)
-    assert list(step.graphs.graphs) == [wavenet_graph_key(net, batches[0])]
+    assert list(step.graphs.graphs) == [shape_key(batches[0], None)]
     assert len(replays) == len(batches) - 1
     losses = [s["metrics"]["loss"].item() for s in graphed]
     assert len(set(losses)) == len(losses) and all(np.isfinite(losses))

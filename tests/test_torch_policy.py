@@ -331,7 +331,7 @@ def _f32_run(name):
     if name == "wavenet":
         jc, tc = configs("wavenet", ",lc_channels=20")
         tn = TWaveNet(tc)
-        tp = tloop._trainable(tn.init(0))
+        tp = tloop.trainable(tn.init(0))
         rng = np.random.default_rng(6)
         audio = torch.from_numpy(
             rng.uniform(-0.5, 0.5, (2, tn.receptive_field + 16)).astype(np.float32))
@@ -342,12 +342,12 @@ def _f32_run(name):
         outs = [logits]
     else:
         _, _, tm, (tp, ts) = tacotrons(name, ",guided_attention_weight=0.5")
-        tp = tloop._trainable(tp)
+        tp = tloop.trainable(tp)
         b = batch(seed=7)
         out, new_bn = t_forward(tm, (tp, ts), b, is_training=True)
         loss, _ = tm.loss(out, torch.from_numpy(b["mel"]), torch.from_numpy(b["linear"]))
         outs = [out[k] for k in sorted(out)] + tree_leaves(new_bn)
-    grads = tloop._grads(loss, tp)
+    grads = tloop.autograd_grads(loss, tp)
     return [t.detach() for t in outs + [loss] + tree_leaves(grads)]
 
 
