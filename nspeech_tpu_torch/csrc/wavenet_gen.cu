@@ -93,6 +93,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <mutex>
+#include <vector>
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -852,11 +855,36 @@ KernelFn pick_kernel(int R, int DC) {
   return wavenet_sample_kernel<0, 0>;
 }
 
+// cudaFuncSetAttribute waits for the running launches of the kernel, and a
+// launch on another CUDA stream (another group of streams) runs for
+// seconds: the shared-memory limit is raised once per kernel instance and
+// device, and again only for a launch that needs more.
 cudaError_t configure(KernelFn fn, int L, int R, int DC, int S, int M,
                       size_t* smem) {
   *smem = smem_bytes(L, R, DC, S, M);
-  return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)*smem);
+  struct Limit {
+    KernelFn fn;
+    int device;
+    size_t bytes;
+  };
+  static std::mutex mu;
+  static std::vector<Limit> limits;
+  int device;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  std::lock_guard<std::mutex> lock(mu);
+  Limit* known = nullptr;
+  for (Limit& l : limits)
+    if (l.fn == fn && l.device == device) known = &l;
+  if (known != nullptr && known->bytes >= *smem) return cudaSuccess;
+  err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)*smem);
+  if (err != cudaSuccess) return err;
+  if (known != nullptr)
+    known->bytes = *smem;
+  else
+    limits.push_back({fn, device, *smem});
+  return cudaSuccess;
 }
 
 void launch_config(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr, int B,

@@ -10,15 +10,20 @@ stream's time). :class:`DynamicBatcher` wraps anything with
 ``StreamingTTS.stream_batch``.
 
 Each has one worker thread: it takes the first request, waits
-``window_ms`` for companions (up to ``max_batch``), runs one batched call
-and fans the results out. One worker is deliberate: the card runs the
-launches of one CUDA stream in order anyway, so more batches in flight
-would only queue.
+``window_ms`` for companions (up to ``max_batch``) and splits the window
+into groups. ``DynamicBatcher`` runs each group's batched call on the
+worker, one at a time: a one-shot group takes the synthesizer's whole
+batch for about a second, and nothing of it could run beside another.
+``StreamBatcher`` hands each group to a group slot (a thread and a CUDA
+stream) and goes back to gathering as soon as a slot is free: a stream
+is one sampler cluster, and the card holds many, so groups stream side
+by side, as far as ``StreamingTTS`` admits them.
 
 While a profile runs (``utils/profiling.py``) each group records
-``batcher.group`` around its call, with its rows and the requests still
-queued at dispatch, and under it each of its requests ``batcher.wait``,
-from the request's enqueue to the start of the call.
+``batcher.group`` around its call, on the thread that runs it, with its
+rows and the requests still queued at dispatch, and under it each of its
+requests ``batcher.wait``, from the request's enqueue to the start of the
+call.
 """
 
 from __future__ import annotations
@@ -27,10 +32,24 @@ import contextlib
 import queue
 import threading
 import time
+from collections import deque
 from concurrent.futures import Future
-from typing import Any, NamedTuple, Optional
+from typing import Any, Callable, NamedTuple, Optional
+
+import torch
 
 from nspeech_tpu_torch.utils import profiling
+
+
+# Groups a StreamBatcher streams at once. Each takes two CUDA streams (its
+# decoder's and its sampler's), and the CUDA driver runs every stream
+# through one of its hardware queues, 8 by default: two busy streams on one
+# queue wait for each other's kernels, a decoder chunk for another group's
+# 2-s sampler launch. On an H100 three concurrent groups kept each group's
+# pace within 5% of a lone one's, and four did not (17.5k samples/s alone;
+# 16.6k at three; 16.3k at four with 25% more host waits; in the stream
+# cell four slots read playback at 0.76x real time, three at 0.86x).
+GROUP_SLOTS = 3
 
 
 class _Request(NamedTuple):
@@ -38,21 +57,27 @@ class _Request(NamedTuple):
     speaker_id: Any
     sink: Any                 # the caller's Future (one-shot) or chunk queue
     t_enq: Optional[int]      # enqueue time (profiling.stamp), None untraced
+    t_arrive: float           # enqueue time (time.monotonic)
 
 
 def _is_default(speaker_id) -> bool:
     return speaker_id is None or speaker_id < 0
 
 
-def _gather(q: queue.Queue, max_batch: int, window: float):
+def _gather(q: queue.Queue, max_batch: int, window: float,
+            hold: Optional[Callable[[], float]] = None):
     """Block for a first item, then take more for ``window`` seconds (up
-    to ``max_batch``). Returns (batch, stop): ``stop`` when the close
-    sentinel (None) arrived; the batch is then what came before it."""
+    to ``max_batch``), or, where ``hold`` (asked once the first item is
+    in) gives longer, until that many seconds after the first item's
+    arrival. Returns (batch, stop): ``stop`` when the close sentinel
+    (None) arrived; the batch is then what came before it."""
     head = q.get()
     if head is None:
         return [], True
     batch = [head]
     deadline = time.monotonic() + window
+    if hold is not None:
+        deadline = max(deadline, head.t_arrive + hold())
     while len(batch) < max_batch:
         try:
             item = q.get(timeout=max(0.0, deadline - time.monotonic()))
@@ -89,9 +114,9 @@ def _group_span(q: queue.Queue, group):
 
 
 class _Batcher:
-    """The worker both batchers share: one thread takes a window of
-    requests (:func:`_gather`), splits it (:func:`_partition`) and hands
-    each group to the subclass's ``_dispatch_group`` under its spans."""
+    """What both batchers share: the request queue, the counts, and one
+    worker thread that runs the subclass's ``_run``, which takes windows
+    of requests (:func:`_gather`) and splits them (:func:`_partition`)."""
 
     def __init__(self, max_batch: int, window_ms: float, name: str):
         self.max_batch = max(1, int(max_batch))
@@ -104,16 +129,8 @@ class _Batcher:
     def _enqueue(self, text: str, speaker_id, sink) -> None:
         if not self._worker.is_alive():
             raise RuntimeError(f"{type(self).__name__} worker thread is dead")
-        self._q.put(_Request(text, speaker_id, sink, profiling.stamp()))
-
-    def _run(self) -> None:
-        while True:
-            batch, stop = _gather(self._q, self.max_batch, self.window)
-            for group in _partition(batch):
-                with _group_span(self._q, group):
-                    self._dispatch_group(group)
-            if stop:
-                return
+        self._q.put(_Request(text, speaker_id, sink, profiling.stamp(),
+                             time.monotonic()))
 
     def _count(self, group) -> None:
         self.stats["requests"] += len(group)
@@ -152,6 +169,15 @@ class DynamicBatcher(_Batcher):
         self._q.put(None)
         self._worker.join(timeout=5.0)
 
+    def _run(self) -> None:
+        while True:
+            batch, stop = _gather(self._q, self.max_batch, self.window)
+            for group in _partition(batch):
+                with _group_span(self._q, group):
+                    self._dispatch_group(group)
+            if stop:
+                return
+
     def _dispatch_group(self, batch, _retry: bool = False) -> None:
         texts = [r.text for r in batch]
         speakers = [r.speaker_id for r in batch]
@@ -179,6 +205,22 @@ class DynamicBatcher(_Batcher):
 _STREAM_END = object()
 
 
+def _make_library_handles(device) -> None:
+    """A product and a convolution on the current CUDA stream, so that
+    the calling thread's cuBLAS, cuBLASLt and cuDNN handles and their
+    workspaces exist before it streams. PyTorch makes them at a thread's
+    first such op, and threads that made them in their first group while
+    other groups streamed held up every group on an H100: a batcher's
+    first three groups reached first audio up to 5.7 s late and played
+    at 0.56-0.67x real time, where later groups took 0.6-0.7 s and
+    0.89x."""
+    x = torch.ones(4, 4, device=device)
+    torch.nn.functional.linear(x, x, x[0])
+    torch.mm(x, x)
+    torch.nn.functional.conv1d(x[None], x[:, :, None])
+    torch.cuda.current_stream(device).synchronize()
+
+
 class StreamBatcher(_Batcher):
     """Dynamic batching for streaming requests.
 
@@ -188,10 +230,22 @@ class StreamBatcher(_Batcher):
     group, one carried sampler launch per chunk for all of its streams.
     Chunks go to each caller's queue as the batched pipeline yields them.
 
-    While a group streams, new arrivals wait for the next window: the
-    group's launches keep the card busy back to back. A failure mid-stream
-    aborts the whole group: its callers have partial audio already, so a
-    per-item retry cannot apply.
+    Up to :data:`GROUP_SLOTS` groups stream at once, each on a slot: a
+    thread and a CUDA stream the batcher makes once (each stream waits
+    once on the stream current at construction, so the weights are
+    ready; each thread makes its CUDA library handles before its first
+    group). The worker gathers the next group as soon as a
+    slot is free, so new arrivals start while earlier groups still stream,
+    and ``StreamingTTS`` admits each when the card has room for its
+    streams' clusters. A group that takes the last free slot gathers
+    longer: until the longest a group has lately streamed, divided by the
+    slots, after its first request's arrival (or ``max_batch``). Held
+    groups then start that far apart at least, so a slot frees up about
+    as the next is due, and arrivals never find every slot taken for a
+    whole group's time; before any group has ended nothing is held. A
+    failure mid-stream aborts its own group: its callers have partial
+    audio already, so a per-item retry cannot apply. After :meth:`close`
+    the worker ends once the groups in flight have ended.
     """
 
     def __init__(self, streamer, max_batch: int = 8,
@@ -199,6 +253,24 @@ class StreamBatcher(_Batcher):
         if not hasattr(streamer, "stream_batch"):
             raise ValueError("streamer has no stream_batch")
         self._tts = streamer
+        # the group slots: a thread each, with its job queue and its CUDA
+        # stream (None where no weights are on a card); a slot puts its
+        # job queue into _free whenever it can take a group
+        self._free: queue.Queue = queue.Queue()
+        self._jobs = [queue.Queue() for _ in range(GROUP_SLOTS)]
+        self._group_s: deque = deque(maxlen=GROUP_SLOTS)   # latest groups' seconds
+        origin = (torch.cuda.current_stream()
+                  if torch.cuda.is_initialized() else None)
+        self._slot_threads = []
+        for i, jobs in enumerate(self._jobs):
+            stream = None
+            if origin is not None:
+                stream = torch.cuda.Stream(origin.device)
+                stream.wait_stream(origin)
+            th = threading.Thread(target=self._slot, args=(jobs, stream),
+                                  daemon=True, name=f"stream-slot-{i}")
+            th.start()
+            self._slot_threads.append(th)
         super().__init__(max_batch, window_ms, "stream-batcher")
 
     def stream(self, text: str, speaker_id: int = -1,
@@ -225,11 +297,55 @@ class StreamBatcher(_Batcher):
     def close(self) -> None:
         self._q.put(None)
 
+    def _run(self) -> None:
+        while True:
+            slots = [self._free.get()]    # a group can start: gather it
+            batch, stop = _gather(self._q, self.max_batch, self.window,
+                                  self._hold)
+            for group in _partition(batch):
+                self._count(group)
+                (slots.pop() if slots else self._free.get()).put(group)
+            for slot in slots:
+                self._free.put(slot)
+            if stop:
+                break
+        for jobs in self._jobs:           # each slot ends after its group
+            jobs.put(None)
+        for th in self._slot_threads:
+            th.join()
+
+    def _hold(self) -> float:
+        """Seconds a group gathers after its first request's arrival: the
+        longest of the latest groups over the slots where it takes the
+        last free one, else 0."""
+        if not self._free.empty():
+            return 0.0
+        return max(list(self._group_s), default=0.0) / GROUP_SLOTS
+
+    def _slot(self, jobs: queue.Queue, stream) -> None:
+        """A group slot's thread: the groups handed to it, one at a time,
+        each under its spans and on the slot's CUDA stream (None on the
+        CPU); then the group's seconds, and the slot is free again."""
+        with (contextlib.nullcontext() if stream is None
+              else torch.cuda.stream(stream)):
+            if stream is not None:
+                _make_library_handles(stream.device)
+            while True:
+                self._free.put(jobs)
+                group = jobs.get()
+                if group is None:
+                    return
+                t0 = time.monotonic()
+                try:
+                    with _group_span(self._q, group):
+                        self._dispatch_group(group)
+                finally:
+                    self._group_s.append(time.monotonic() - t0)
+
     def _dispatch_group(self, batch) -> None:
         texts = [r.text for r in batch]
         speakers = [r.speaker_id for r in batch]
         queues = [r.sink for r in batch]
-        self._count(batch)
         try:
             for chunks in self._tts.stream_batch(texts, speakers):
                 for q, c in zip(queues, chunks):

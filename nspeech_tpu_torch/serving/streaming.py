@@ -29,13 +29,36 @@ While a profile runs (``utils/profiling.py``) a batch records
 (the host waits there for the encoder, the prefix decode and the first
 postnet window on the device), and ``stream.launch`` for each sampler
 launch, from its start to its chunk's delivery, with the launch's index.
+
+On the card the sampler launches on a CUDA stream of the call's own, at
+high priority, beside the call's current stream, which runs the decoder
+and the postnet: a launch takes 0.5-2 s, and decoder chunks queued
+behind it on one stream would wait for it, thousands of small kernels
+held in the CUDA driver's queues (which slows other threads' launches).
+
+Calls may stream from several threads at once (``StreamBatcher`` runs
+each group on a thread and CUDA stream of its own). Each stream is one
+8-CTA sampler cluster, and the sampler runs a call's real streams alone
+(the Tacotron half pads the batch to a power of two; the sampler's rows
+are independent, so its padding rows would only take clusters). A call
+is admitted only when the card has room for its streams beside those
+already streaming: the clusters that fit at once at the vocoder's
+widths, as the card reports them. Calls
+that do not fit wait in the order they arrived; a call larger than the
+whole room streams alone; on the CPU nothing waits. While a profile
+runs, ``stream.admit`` spans a call's entry to its admission, with its
+``rows`` (its streams) and the rows ``inflight`` at admission; ``stream.prefix``
+then opens. The ``last_*`` results are those of the calling thread's
+last call, or of the latest call where the thread ran none.
 """
 
 from __future__ import annotations
 
+import contextlib
+import threading
 import time
-from collections import OrderedDict
-from typing import Iterator
+from collections import OrderedDict, deque
+from typing import Iterator, Optional
 
 import numpy as np
 import torch
@@ -44,7 +67,8 @@ from nspeech_tpu_torch import dsp
 from nspeech_tpu_torch.config import stft_params
 from nspeech_tpu_torch.data.feeder import round_up
 from nspeech_tpu_torch.models import decoder as D
-from nspeech_tpu_torch.ops.cuda.wavenet_gen import CudaWaveNetGenerator
+from nspeech_tpu_torch.ops.cuda.wavenet_gen import (CARRIED_SAMPLER,
+                                                    CudaWaveNetGenerator)
 from nspeech_tpu_torch.ops.upsample import upsample_abs
 from nspeech_tpu_torch.serving.errors import ClientError, check_ids
 from nspeech_tpu_torch.text import text_to_sequence
@@ -53,6 +77,53 @@ from nspeech_tpu_torch.utils import profiling
 
 SEED = 0            # the sampler's noise key: WaveNetVocoder.vocode's default
 MAX_GENERATORS = 8  # packed weight copies kept on the device, per speaker tuple
+
+
+class _Admission:
+    """Room for sampler rows, granted in arrival order: a call enters when
+    its rows fit beside the rows streaming and every call that arrived
+    before it has entered. A call larger than the whole room enters alone,
+    once nothing streams. ``room`` None (no clusters: the CPU) admits at
+    once."""
+
+    def __init__(self):
+        self._cv = threading.Condition()
+        self._queue: deque = deque()    # the waiting calls, oldest first
+        self.inflight = 0               # sampler rows streaming
+
+    def enter(self, rows: int, room: Optional[int]) -> int:
+        """Block until the call is admitted; returns the rows that were
+        streaming then."""
+        with self._cv:
+            if room is not None:
+                me = object()
+                self._queue.append(me)
+                self._cv.wait_for(lambda: self._queue[0] is me and (
+                    self.inflight == 0 or self.inflight + rows <= room))
+                self._queue.popleft()
+                self._cv.notify_all()   # the next in line may fit too
+            before = self.inflight
+            self.inflight += rows
+            return before
+
+    def leave(self, rows: int) -> None:
+        with self._cv:
+            self.inflight -= rows
+            self._cv.notify_all()
+
+
+def _result(name: str):
+    """A call's result as the reading thread sees it: that of the last
+    call the thread iterated, else the latest any thread published."""
+    def get(self):
+        mine = vars(self._mine)
+        if name in mine:
+            return mine[name]
+        try:
+            return self._latest[name]
+        except KeyError:
+            raise AttributeError(name) from None
+    return property(get)
 
 
 class StreamingTTS:
@@ -134,6 +205,32 @@ class StreamingTTS:
         self._use_prefix = (not self._whole_postnet and n0 <= cfg.max_iters
                             and self._buf_frames >= self._W + self._halo)
         self._gens: "OrderedDict[object, CudaWaveNetGenerator]" = OrderedDict()
+        self._lock = threading.Lock()
+        # One thread at a time issues the Tacotron stages (encoder, decoder
+        # chunks, postnet windows, conditioning): thousands of small ops,
+        # each of which releases the GIL and takes it back, and among
+        # several dispatching threads every take waits for a handoff that
+        # costs more than the op. The device waits are made outside it.
+        self._host = threading.Lock()
+        self._admission = _Admission()
+        self._clusters: Optional[int] = None    # the card's, at first use
+        self._mine = threading.local()           # this thread's results
+        self._sampler_streams: list = []         # free ones, on the card
+        self._latest: dict = {}                  # any thread's newest
+        # the decode table is built here, on the stream current now, which
+        # a StreamBatcher's streams wait on: every group reads it ready
+        dsp.mu_law_decode(torch.zeros(1, dtype=torch.int32, device=self.device),
+                          self.net.quantization_channels)
+
+    last_mels = _result("last_mels")
+    last_mel_batch = _result("last_mel_batch")
+    last_mel = _result("last_mel")
+    last_total_frames = _result("last_total_frames")
+    last_launch_to_delivery = _result("last_launch_to_delivery")
+
+    def _publish(self, **results) -> None:
+        vars(self._mine).update(results)
+        self._latest.update(results)
 
     def _W_of(self, V: int) -> int:
         """Conditioning window frames for a V-sample launch: every sample
@@ -181,23 +278,54 @@ class StreamingTTS:
         """The sampler for a speaker tuple (None: unconditioned). Each
         packs its own weight copy on the device (6.9 MB at full width),
         and a multi-speaker server sees many tuples, so the cache is a
-        bounded LRU."""
-        gen = self._gens.pop(gc_key, None)
-        if gen is None:
-            while len(self._gens) >= MAX_GENERATORS:
-                self._gens.popitem(last=False)
-            gen = CudaWaveNetGenerator(
-                self.net, self._vparams,
-                gc_ids=None if gc_key is None else list(gc_key))
-        self._gens[gc_key] = gen
-        return gen
+        bounded LRU, shared by the threads that stream. A new one is packed
+        on this thread's CUDA stream and read from others: it is cached
+        once that stream has packed it."""
+        with self._lock:
+            gen = self._gens.pop(gc_key, None)
+            if gen is None:
+                while len(self._gens) >= MAX_GENERATORS:
+                    self._gens.popitem(last=False)
+                gen = CudaWaveNetGenerator(
+                    self.net, self._vparams,
+                    gc_ids=None if gc_key is None else list(gc_key))
+                if gen.packed is not None:
+                    torch.cuda.current_stream(self.device).synchronize()
+            self._gens[gc_key] = gen
+            return gen
+
+    def _room(self, gen: CudaWaveNetGenerator) -> Optional[int]:
+        """Sampler rows the card streams at once: the clusters
+        that fit at the vocoder's widths (None on the CPU)."""
+        if gen.packed is None:
+            return None
+        if self._clusters is None:
+            self._clusters = CARRIED_SAMPLER.max_active_clusters(gen.packed)
+        return self._clusters
+
+    def _sampler_stream(self) -> Optional[torch.cuda.Stream]:
+        """A free CUDA stream for a call's sampler launches (None on the
+        CPU). The high-priority pool of PyTorch's streams, which nothing
+        else here draws from, holds 32: more than the calls the card
+        admits at once."""
+        if self.device.type != "cuda":
+            return None
+        with self._lock:
+            if self._sampler_streams:
+                return self._sampler_streams.pop()
+        return torch.cuda.Stream(self.device, priority=-1)
+
+    @staticmethod
+    def _on(stream: Optional[torch.cuda.Stream]):
+        return (contextlib.nullcontext() if stream is None
+                else torch.cuda.stream(stream))
 
     def _to_host(self, wav: torch.Tensor):
         """Start the copy of a launch's waveform to the host; returns
         (host tensor, event to wait on or None). On the card the copy is
         queued right behind the launch into pinned memory, so a delivery
-        waits for its own launch only, not for the launches and decoder
-        chunks queued after it on the same stream."""
+        waits for its own launch only, not for the launch queued after it
+        on the same stream."""
         if wav.device.type != "cuda":
             return wav, None
         host = torch.empty(wav.shape, dtype=wav.dtype, pin_memory=True)
@@ -225,7 +353,9 @@ class StreamingTTS:
         this round (it ended; streams stop at their own stop frame while
         the batch runs on for the longest). The decoder, the postnet and
         the vocoder advance in lockstep for all N streams: one sampler
-        launch per chunk, one 8-CTA cluster per stream on the card.
+        launch per chunk, one 8-CTA cluster per stream on the card (the
+        sampler runs the real streams alone; only the Tacotron half is
+        padded).
         Speaker ids the Tacotron speaker table or the vocoder's gc table
         lacks raise :class:`ClientError` before any launch (a deliberate
         deviation from JAX, which serves NaN rows).
@@ -239,10 +369,13 @@ class StreamingTTS:
         ``vocode_batch`` would receive), ``last_mel``,
         ``last_total_frames`` (stream 0's) and ``last_launch_to_delivery``
         (seconds from each launch's start to its chunk's delivery).
+
+        The call streams once the card has room for its streams' clusters
+        (module docstring); they are given back when the generator ends,
+        raises or is closed.
         """
-        t_entry = profiling.stamp()     # stream.prefix opens
-        cfg, r, k, halo = self.cfg, self.cfg.outputs_per_step, self.k, self._halo
-        dev, hop = self.device, self._hop
+        t_entry = profiling.stamp()     # stream.admit opens
+        cfg = self.cfg
         n_real = len(texts)
         if speaker_ids is None:
             speaker_ids = [-1] * n_real
@@ -275,25 +408,47 @@ class StreamingTTS:
                     "stream_batch: cannot mix explicit speaker_ids and "
                     "-1/None (unconditioned) in one vocoder batch")
             if not any(missing):
-                gc_key = tuple(int(s) for s in spk)
+                gc_key = tuple(int(s) for s in spk[:n_real])
+        gen = self._generator(gc_key)
+        inflight = self._admission.enter(n_real, self._room(gen))
+        profiling.record("stream.admit", t_entry, time.time_ns(), rows=n_real,
+                         inflight=inflight)
+        vs = self._sampler_stream()
+        try:
+            yield from self._pipeline(gen, vs, n_real, ids, lengths, spk)
+        finally:
+            self._admission.leave(n_real)
+            if vs is not None:
+                with self._lock:
+                    self._sampler_streams.append(vs)
+
+    def _pipeline(self, gen, vs, n_real: int, ids, lengths, spk):
+        """:meth:`stream_batch` from its admission on: ``ids``, ``lengths``
+        and ``spk`` are the padded batch's host arrays; ``vs`` is the
+        sampler's stream (None on the CPU)."""
+        t_entry = profiling.stamp()     # stream.prefix opens
+        cfg, r, k, halo = self.cfg, self.cfg.outputs_per_step, self.k, self._halo
+        dev, hop = self.device, self._hop
+        N = ids.shape[0]
         ids, lengths, spk = (torch.from_numpy(a).to(dev) for a in (ids, lengths, spk))
 
         B = self._buf_frames           # the one-shot postnet input size
         dec = torch.zeros(N, B, cfg.num_mels, device=dev)   # decode buffer
         mel = torch.zeros(N, B, cfg.num_mels, device=dev)   # postnet'ed
-        if self._use_prefix:
-            step, carry, dec0, mel0 = self._prefix(ids, lengths, spk)
-            head = min(self._prefix_frames, B)   # decoded frames so far
-            dec[:, :head] = dec0[:, :head]
-            mel_head = self._W                   # postnet'ed frames so far
-            mel[:, :mel_head] = mel0
-            steps_done = self._prefix_frames // r
-        else:
-            step, out0, carry = self._start(ids, lengths, spk)
-            dec[:, :r] = D.assemble_outputs(out0[None], cfg.num_mels)
-            head, mel_head, steps_done = r, 0, 1
-        gen = self._generator(gc_key)
-        voc_carry = gen.chunk_carry0(N)
+        with self._host:
+            if self._use_prefix:
+                step, carry, dec0, mel0 = self._prefix(ids, lengths, spk)
+                head = min(self._prefix_frames, B)   # decoded frames so far
+                dec[:, :head] = dec0[:, :head]
+                mel_head = self._W                   # postnet'ed frames so far
+                mel[:, :mel_head] = mel0
+                steps_done = self._prefix_frames // r
+            else:
+                step, out0, carry = self._start(ids, lengths, spk)
+                dec[:, :r] = D.assemble_outputs(out0[None], cfg.num_mels)
+                head, mel_head, steps_done = r, 0, 1
+        with self._on(vs):             # the carry lives on the sampler's stream
+            voc_carry = gen.chunk_carry0(n_real)   # no padding rows
         Q = self.net.quantization_channels
         launches = 0                   # position on the launch ramp
         s = 0                          # next sample to vocode (all streams)
@@ -301,7 +456,8 @@ class StreamingTTS:
         row_done = np.zeros((N,), bool)
         row_total = np.full((N,), B, np.int64)   # frames, once a row stopped
         total_max = None               # the batch's frames, once known
-        self.last_launch_to_delivery = []
+        delivered = []                 # seconds from launch to delivery
+        self._publish(last_launch_to_delivery=delivered)
 
         def next_V() -> int:
             return self._Vs[min(launches, len(self._Vs) - 1)]
@@ -345,7 +501,7 @@ class StreamingTTS:
         def vocode_next():
             """Launch the sampler over samples [s, s + V) of every stream;
             returns the pending chunk (host copy, event, s0, launch time,
-            launch stamp)."""
+            launch stamp, conditioning)."""
             nonlocal s, voc_carry, launches
             V = next_V()
             if total_max is not None:      # the tail: stop at the end (the
@@ -356,32 +512,42 @@ class StreamingTTS:
             t_ns = profiling.stamp()
             f0 = s // hop
             fe = (s + V) // hop + 2        # highest frame row touched
-            mel_ready(min(fe + 1, total_max if total_max is not None else B, B))
-            avail = min(f0 + W, mel_head) - f0
-            win = torch.empty(N, W, cfg.num_mels, device=dev)
-            win[:, :avail] = mel[:, f0: f0 + avail]
-            if avail < W:                                  # edge hold
-                win[:, avail:] = win[:, avail - 1: avail]
-            # a clip this far from the end does not bind, as in the
-            # one-shot; the batch total binds the tail (the one-shot batch
-            # path clips every stream at the batch maximum too)
-            clip_total = total_max if total_max is not None else fe + 2
-            lc = upsample_abs(win, f0, s, hop, V, clip_total)
-            codes, voc_carry = gen.generate_chunk(
-                voc_carry, V, seed=SEED, lc=lc, temperature=self._temperature)
-            host, ready = self._to_host(dsp.mu_law_decode(codes, Q))
+            with self._host:
+                mel_ready(min(fe + 1, total_max if total_max is not None else B, B))
+                avail = min(f0 + W, mel_head) - f0
+                win = torch.empty(n_real, W, cfg.num_mels, device=dev)
+                win[:, :avail] = mel[:n_real, f0: f0 + avail]
+                if avail < W:                                  # edge hold
+                    win[:, avail:] = win[:, avail - 1: avail]
+                # a clip this far from the end does not bind, as in the
+                # one-shot; the batch total binds the tail (the one-shot
+                # batch path clips every stream at the batch maximum too)
+                clip_total = total_max if total_max is not None else fe + 2
+                lc = upsample_abs(win, f0, s, hop, V, clip_total)
+            if vs is not None:             # lc, made here, is ready there
+                vs.wait_stream(torch.cuda.current_stream(dev))
+            with self._on(vs):
+                codes, voc_carry = gen.generate_chunk(
+                    voc_carry, V, seed=SEED, lc=lc, temperature=self._temperature)
+                host, ready = self._to_host(dsp.mu_law_decode(codes, Q))
             s0, s = s, s + V
-            return host, ready, s0, t_launch, t_ns
+            # lc is held until the delivery has waited for the launch that
+            # reads it: a record_stream event instead would be queried by
+            # every allocation of every thread while the launch runs
+            return host, ready, s0, t_launch, t_ns, lc
 
         def deliver(item):
-            host, ready, s0, t_launch, t_ns = item
+            host, ready, s0, t_launch, t_ns, _ = item
             if ready is not None:
                 ready.synchronize()
-            wav = host.numpy()             # [N, V]; padding rows dropped
+            # [n_real, V]. Out of the pinned block, which
+            # goes back to the host allocator's cache: chunks kept by callers
+            # would hold it, and the next launch would pin fresh memory
+            wav = host.numpy().copy()
             if t_ns is not None:
                 profiling.record("stream.launch", t_ns, time.time_ns(),
-                                 index=len(self.last_launch_to_delivery))
-            self.last_launch_to_delivery.append(time.perf_counter() - t_launch)
+                                 index=len(delivered))
+            delivered.append(time.perf_counter() - t_launch)
             out = []
             for i in range(n_real):
                 if row_done[i]:
@@ -427,7 +593,8 @@ class StreamingTTS:
             # 1 chunk until first audio is out (it gates time to first
             # audio), then the ramp's largest
             m_dec = 1 if launches == 0 else self._Ms[-1]
-            got, carry = self._decode(step, carry, m_dec * self._k_steps)
+            with self._host:
+                got, carry = self._decode(step, carry, m_dec * self._k_steps)
             n = min(got.shape[1], B - head)  # frames past the budget are not
             if n > 0:                        # in the one-shot buffer: drop
                 dec[:, head: head + n] = got[:, :n]
@@ -443,11 +610,10 @@ class StreamingTTS:
                 yield deliver(item)
         if pending is not None:
             yield deliver(pending)
-        self.last_mels = [mel[i, : int(row_total[i])].cpu().numpy()
-                          for i in range(n_real)]
-        self.last_mel_batch = mel[:n_real, :total_max].cpu().numpy()
-        self.last_mel = self.last_mels[0]
-        self.last_total_frames = int(row_total[0])
+        mels = [mel[i, : int(row_total[i])].cpu().numpy() for i in range(n_real)]
+        self._publish(last_mels=mels,
+                      last_mel_batch=mel[:n_real, :total_max].cpu().numpy(),
+                      last_mel=mels[0], last_total_frames=int(row_total[0]))
 
     def synthesize(self, text: str, speaker_id: int = -1) -> np.ndarray:
         """The stream, concatenated."""

@@ -2,7 +2,10 @@
 primed and carried-state launches) against its plain PyTorch version, the
 wrapper's checks, the one-shot and streaming serving paths on the card,
 Tacotron-1 on the card against its CPU forward (within 1e-3, TF32 off),
-concurrent callers sharing launches through the ``DynamicBatcher``, and
+concurrent callers sharing launches through the ``DynamicBatcher``, two
+``StreamBatcher`` groups streaming at once on their own CUDA streams
+(each caller's waveform that of its text streamed alone, bit for bit,
+the pair in under 1.5x one group's wall time), and
 one Tacotron-2 training step at the published widths on the card against
 the same step on the CPU (``chip_smoke.step_agreement``: in float32 the
 loss within 1e-4 relative, the gradient, ``grad_norm``, Adam's update and
@@ -279,6 +282,64 @@ def test_streaming_on_card_launches_the_carried_kernel(cuda):
     ref = voc.vocode_batch(tts.last_mel_batch, [0, 2], temperature=1.0)
     for i, w in enumerate(wavs):
         assert w.size == 3000 and np.array_equal(w, ref[i])
+
+
+@pytest.mark.gpu
+def test_stream_batcher_overlaps_groups_on_their_own_streams(cuda):
+    """Two requests through ``StreamBatcher(max_batch=1)``, a group each,
+    stream at once, each on its own CUDA stream and sampler cluster at the
+    vocoder's published widths (~0.7 s of sampler a group): each caller
+    gets the waveform of its text streamed alone on the default stream,
+    bit for bit, and the pair takes under 1.5x one group's wall time."""
+    import threading
+    import time
+
+    from nspeech_tpu_torch.serving import (StreamBatcher, StreamingTTS,
+                                           Synthesizer, WaveNetVocoder)
+
+    cfg = load_config("taco2").parse(
+        "max_iters=24,outputs_per_step=2,encoder_conv_layers=1,"
+        "postnet_conv_layers=2,postnet_conv_width=3,expand_conv_layers=1,"
+        "encoder_conv_channels=16,attention_dim=16,postnet_conv_channels=16,"
+        "expand_conv_channels=16,decoder_lstm_units=16,encoder_lstm_units=8,"
+        "expand_lstm_units=8,embedding_dim=16")
+    model = Tacotron2(cfg)
+    params, bn = model.init(0)
+    syn = Synthesizer(cfg, text_bucket=16).set_variables(params, bn, model=model)
+    vcfg = load_config("wavenet").parse("lc_channels=80")
+    net = WaveNet(vcfg)
+    voc = WaveNetVocoder(vcfg).set_variables(net, net.init(1))
+    tts = StreamingTTS(syn, voc, chunk_frames=8, temperature=1.0, text_bucket=16)
+    texts = ["the first caller's text", "and a second caller"]
+    alone = [tts.synthesize(t) for t in texts]       # also builds and plans
+    batcher = StreamBatcher(tts, max_batch=1, window_ms=1)
+
+    def timed(ts):
+        out = {}
+
+        def one(i, t):
+            out[i] = np.concatenate(list(batcher.stream(t, timeout=300)))
+
+        threads = [threading.Thread(target=one, args=(i, t)) for i, t in enumerate(ts)]
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=300)
+        assert not any(th.is_alive() for th in threads)
+        return time.perf_counter() - t0, out
+
+    try:
+        one_s, single = timed(texts[:1])
+        pair_s, pair = timed(texts)
+    finally:
+        batcher.close()
+        batcher._worker.join(timeout=30)
+    assert alone[0].size == 24 * 2 * 250
+    assert np.array_equal(single[0], alone[0])
+    assert all(np.array_equal(pair[i], alone[i]) for i in range(2))
+    assert batcher.stats["batches"] == 3
+    assert pair_s < 1.5 * one_s, (pair_s, one_s)
 
 
 @pytest.mark.gpu

@@ -39,6 +39,7 @@ from nspeech_tpu_torch import convert
 from nspeech_tpu_torch.cli import demo_server as port_server
 from nspeech_tpu_torch.config import load_config as t_load
 from nspeech_tpu_torch.models import WaveNet, create_model
+from nspeech_tpu_torch.serving import batcher as batcher_mod
 from nspeech_tpu_torch.serving import (DynamicBatcher, StreamBatcher,
                                        StreamingTTS, Synthesizer, TextToSpeech,
                                        WaveNetVocoder, split_text,
@@ -232,6 +233,286 @@ def test_stream_batcher_partitions_and_aborts_groups():
     results, errors = fire(b, ["ok text", "bad"], stream=True)
     assert set(errors) == {0, 1}
     assert all(isinstance(e, ValueError) for e in errors.values())
+
+
+class GatedStreamer:
+    """stream_batch stub whose groups hold the card until released: a
+    group yields one chunk per stream (the text's length), blocks until
+    its gate (keyed by its first text) opens, then yields a second (the
+    length plus one) or, for a text starting with "bad", raises."""
+
+    def __init__(self):
+        self.gates = {}
+        self.started = []               # each group's texts, in call order
+        self.running = self.peak = 0
+        self.lock = threading.Lock()
+
+    def gate(self, text):
+        with self.lock:
+            return self.gates.setdefault(text, threading.Event())
+
+    def stream_batch(self, texts, speaker_ids=None):
+        gate = self.gate(texts[0])
+        with self.lock:
+            self.started.append(list(texts))
+            self.running += 1
+            self.peak = max(self.peak, self.running)
+        try:
+            yield [np.full(2, float(len(t)), np.float32) for t in texts]
+            assert gate.wait(timeout=30), "the test never released the group"
+            if any(t.startswith("bad") for t in texts):
+                raise ValueError("bad text")
+            yield [np.full(2, float(len(t) + 1), np.float32) for t in texts]
+        finally:
+            with self.lock:
+                self.running -= 1
+
+
+def wait_until(pred, timeout=10.0):
+    deadline = time.monotonic() + timeout
+    while not pred():
+        assert time.monotonic() < deadline, "timed out"
+        time.sleep(0.005)
+
+
+def start_stream(batcher, text, speaker_id=-1):
+    """A caller on its own thread: (thread, {"chunks": [...]} or "error")."""
+    out = {"chunks": []}
+
+    def run():
+        try:
+            for c in batcher.stream(text, speaker_id, timeout=30):
+                out["chunks"].append(c)
+        except Exception as e:  # noqa: BLE001 - recorded for assertions
+            out["error"] = e
+
+    th = threading.Thread(target=run)
+    th.start()
+    return th, out
+
+
+def finish(threads):
+    for th in threads:
+        th.join(timeout=30)
+        assert not th.is_alive(), "a caller hung"
+
+
+def test_stream_batcher_dispatches_while_a_group_streams():
+    """A second group starts while the first still streams, and each
+    caller gets its own group's chunks."""
+    fake = GatedStreamer()
+    b = StreamBatcher(fake, max_batch=4, window_ms=1)
+    try:
+        t1, first = start_stream(b, "first")
+        wait_until(lambda: len(first["chunks"]) == 1)
+        t2, second = start_stream(b, "second one")
+        wait_until(lambda: len(second["chunks"]) == 1)
+        assert fake.running == 2 and fake.started == [["first"], ["second one"]]
+        assert len(first["chunks"]) == 1 and t1.is_alive()   # still streaming
+        fake.gate("second one").set()
+        finish([t2])
+        fake.gate("first").set()
+        finish([t1])
+    finally:
+        b.close()
+    for out, n in ((first, 5.0), (second, 10.0)):
+        assert "error" not in out
+        np.testing.assert_array_equal(out["chunks"], [np.full(2, n), np.full(2, n + 1)])
+    assert b.stats == {"requests": 2, "batches": 2, "max_batch_seen": 1}
+
+
+def test_stream_batcher_failure_aborts_its_own_group_only():
+    fake = GatedStreamer()
+    b = StreamBatcher(fake, max_batch=4, window_ms=1)
+    try:
+        t1, good = start_stream(b, "good")
+        wait_until(lambda: len(good["chunks"]) == 1)
+        t2, bad = start_stream(b, "bad request")
+        wait_until(lambda: len(bad["chunks"]) == 1)
+        fake.gate("bad request").set()
+        finish([t2])
+        assert fake.running == 1 and not good.get("error")
+        fake.gate("good").set()
+        finish([t1])
+    finally:
+        b.close()
+    assert isinstance(bad["error"], ValueError) and len(bad["chunks"]) == 1
+    assert "error" not in good
+    np.testing.assert_array_equal(good["chunks"], [np.full(2, 4.0), np.full(2, 5.0)])
+
+
+def test_stream_batcher_close_with_groups_in_flight():
+    """close() while two groups stream: both streams end whole, then the
+    worker ends; a later request is refused."""
+    fake = GatedStreamer()
+    b = StreamBatcher(fake, max_batch=4, window_ms=1)
+    callers = []
+    for t in ("one", "three"):                 # a group each
+        callers.append(start_stream(b, t))
+        wait_until(lambda: len(callers[-1][1]["chunks"]) == 1)
+    b.close()
+    time.sleep(0.05)
+    assert b._worker.is_alive() and fake.running == 2      # waits for them
+    for t in ("one", "three"):
+        fake.gate(t).set()
+    finish([th for th, _ in callers])
+    b._worker.join(timeout=10)
+    assert not b._worker.is_alive() and fake.running == 0
+    for (_, out), n in zip(callers, (3.0, 5.0)):
+        assert "error" not in out
+        np.testing.assert_array_equal(out["chunks"], [np.full(2, n), np.full(2, n + 1)])
+    with pytest.raises(RuntimeError, match="worker thread is dead"):
+        next(b.stream("late"))
+
+
+def test_stream_batcher_batches_arrivals_while_its_slots_are_taken(monkeypatch):
+    """With every group slot streaming, new arrivals queue; when a slot
+    frees they start together as one group."""
+    monkeypatch.setattr(batcher_mod, "GROUP_SLOTS", 1)
+    fake = GatedStreamer()
+    b = StreamBatcher(fake, max_batch=4, window_ms=1)
+    try:
+        t1, first = start_stream(b, "first")
+        wait_until(lambda: len(first["chunks"]) == 1)
+        later = [start_stream(b, t) for t in ("ab", "cde")]
+        time.sleep(0.1)
+        assert fake.started == [["first"]]                 # no free slot
+        fake.gate("first").set()
+        finish([t1])
+        wait_until(lambda: len(fake.started) == 2)
+        assert sorted(fake.started[1]) == ["ab", "cde"]     # one group
+        fake.gate(fake.started[1][0]).set()
+        finish([th for th, _ in later])
+    finally:
+        b.close()
+    for (_, out), n in zip(later, (2.0, 3.0)):
+        np.testing.assert_array_equal(out["chunks"], [np.full(2, n), np.full(2, n + 1)])
+    assert b.stats == {"requests": 3, "batches": 2, "max_batch_seen": 2}
+
+
+def test_stream_batcher_makes_its_group_slots_once():
+    """Three slot threads, made with the batcher, stream every group; after
+    close() they end with the worker."""
+    fake = GatedStreamer()
+    b = StreamBatcher(fake, max_batch=1, window_ms=1)
+    slots = list(b._slot_threads)
+    assert len(slots) == batcher_mod.GROUP_SLOTS == 3
+    try:
+        for round_ in range(2):
+            callers = [start_stream(b, f"{round_} {t}") for t in ("a", "bb", "ccc")]
+            wait_until(lambda: fake.running == 3)
+            for g in fake.started[-3:]:
+                fake.gate(g[0]).set()
+            finish([th for th, _ in callers])
+            wait_until(lambda: fake.running == 0)
+    finally:
+        b.close()
+    b._worker.join(timeout=10)
+    assert not b._worker.is_alive() and not any(th.is_alive() for th in slots)
+    assert b._slot_threads == slots and b.stats["batches"] == 6
+
+
+def test_stream_batcher_records_each_groups_seconds():
+    fake = GatedStreamer()
+    b = StreamBatcher(fake, max_batch=4, window_ms=1)
+    try:
+        th, out = start_stream(b, "one")
+        wait_until(lambda: len(out["chunks"]) == 1)
+        time.sleep(0.1)
+        fake.gate("one").set()
+        finish([th])
+        wait_until(lambda: len(b._group_s) == 1)
+    finally:
+        b.close()
+    assert 0.1 <= b._group_s[0] < 10
+
+
+def test_stream_batcher_holds_the_last_free_slot(monkeypatch):
+    """Two slots, one streaming, groups lately 0.4 s: a group that takes
+    the last slot gathers until 0.2 s after its first arrival, so a
+    request 0.05 s later joins it."""
+    monkeypatch.setattr(batcher_mod, "GROUP_SLOTS", 2)
+    fake = GatedStreamer()
+    b = StreamBatcher(fake, max_batch=4, window_ms=1)
+    b._group_s.append(0.4)
+    try:
+        t1, first = start_stream(b, "first")
+        wait_until(lambda: len(first["chunks"]) == 1)
+        t0 = time.monotonic()
+        later = [start_stream(b, "ab")]
+        time.sleep(0.05)
+        later.append(start_stream(b, "cde"))
+        wait_until(lambda: len(fake.started) == 2)
+        assert time.monotonic() - t0 >= 0.19
+        assert sorted(fake.started[1]) == ["ab", "cde"]
+        for t in ("first", fake.started[1][0]):
+            fake.gate(t).set()
+        finish([t1] + [th for th, _ in later])
+    finally:
+        b.close()
+    assert b.stats == {"requests": 3, "batches": 2, "max_batch_seen": 2}
+
+
+HOLDS = {  # case: (slots, arrivals, the groups they start as)
+    "another slot free": (3, ["ab", "cde"], [["ab"], ["cde"]]),
+    "no group ended": (2, ["first", "ab"], [["first"], ["ab"]]),
+    "max_batch": (2, ["first", "ab", "cde"], [["first"], ["ab", "cde"]]),
+}
+
+
+@pytest.mark.parametrize("case", list(HOLDS))
+def test_stream_batcher_holds_nothing_else(monkeypatch, case):
+    """No hold while another slot is free or before any group has ended
+    (each arrival starts its own group at once), and a held group that
+    reaches ``max_batch`` starts at once."""
+    slots, texts, groups = HOLDS[case]
+    monkeypatch.setattr(batcher_mod, "GROUP_SLOTS", slots)
+    fake = GatedStreamer()
+    b = StreamBatcher(fake, max_batch=2 if case == "max_batch" else 4, window_ms=1)
+    if case != "no group ended":
+        b._group_s.append(60.0)         # a hold of 20 s or 30 s
+    callers = []
+    try:
+        for t in texts:
+            callers.append(start_stream(b, t))
+            if case != "max_batch" or t == "first":
+                wait_until(lambda: len(callers[-1][1]["chunks"]) == 1, timeout=5)
+        wait_until(lambda: sum(map(len, fake.started)) == len(texts), timeout=5)
+        assert [sorted(g) for g in fake.started] == groups
+        for g in list(fake.started):
+            fake.gate(g[0]).set()
+        finish([th for th, _ in callers])
+    finally:
+        b.close()
+    assert all("error" not in out for _, out in callers)
+
+
+def test_dynamic_batcher_runs_one_group_at_a_time():
+    """Two groups of one window (default and explicit speakers) and a
+    later request: DynamicBatcher's calls never overlap."""
+    class Counting(FakeSynth):
+        running = peak = 0
+
+        def synthesize_batch(self, texts, speaker_ids=None):
+            with self.lock:
+                self.running += 1
+                self.peak = max(self.peak, self.running)
+            try:
+                return super().synthesize_batch(texts, speaker_ids)
+            finally:
+                with self.lock:
+                    self.running -= 1
+
+    fake = Counting(delay=0.1, reject_mixed=True)
+    b = DynamicBatcher(fake, max_batch=8, window_ms=20)
+    late = threading.Timer(0.05, lambda: results.update(late=b.synthesize("late")))
+    results = {}
+    late.start()
+    out, errors = fire(b, ["aa", "bbb", "cccc"], [-1, 2, -1])
+    late.join(timeout=30)
+    b.close()
+    assert not errors and len(out) == 3 and results["late"][0][0] == 4
+    assert fake.peak == 1 and b.stats["batches"] == len(fake.batch_sizes) >= 3
 
 
 def test_server_warmup_touches_every_surface():

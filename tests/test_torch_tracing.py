@@ -18,8 +18,9 @@ marked ``gpu``.
   outside a profile, and the step's result is the same with or without
   them, bit for bit.
 - Each ``program_span`` metric of ``benchmark/metrics/`` that reads the
-  spans returns the value the spans give, and None without spans, after
-  the buffer dropped records, or on a program without the recorder.
+  spans returns the value the spans give, and None without spans (as on
+  a program that records no ``stream.admit``), after the buffer dropped
+  records, or on a program without the recorder.
 - The cost of a span outside a profile.
 - ``gpu``: a span's ``t0_ns`` and its ``nspeech:`` event in the same
   profile agree within 100 us; a kernel launched inside a span starts on
@@ -433,6 +434,12 @@ STREAM_SPANS = [
     ("group", {"rows": 4, "queued": 2},
      [("stream.prefix", BASE + 30, BASE + 30.2, {}),
       ("stream.launch", BASE + 30.2, BASE + 31.2, {"index": 0})])]
+# four calls' admissions: two while others streamed, waits 0, 0.1, 0.5, 0
+ADMIT_SPANS = [
+    ("group", {"rows": 1, "queued": 0},
+     [("stream.admit", BASE + t, BASE + t + w, {"rows": rows, "inflight": busy})])
+    for t, w, rows, busy in ((0, 0.0, 1, 0), (1, 0.1, 2, 1), (2, 0.5, 4, 3),
+                             (9, 0.0, 1, 0))]
 TRAIN_SPANS = [(n, BASE + k, BASE + k + d, {}) for k, (n, d) in enumerate(
     [("train.to_device", 0.010), ("train.forward", 0.200), ("train.backward", 0.300),
      ("train.merge", 0.040), ("train.update", 0.090), ("feeder.take", 0.003),
@@ -445,6 +452,8 @@ METRICS = {
     "group_first_chunk_s_p50.stream": (STREAM_SPANS, 0.8),
     "group_rows_mean.stream": (STREAM_SPANS, 3.0),
     "queued_at_dispatch_mean.stream": (STREAM_SPANS, 1.0),
+    "overlap_share.stream": (ADMIT_SPANS, 50.0),
+    "admit_wait_p90_s.stream": (ADMIT_SPANS, 0.1 + 0.7 * 0.4),
     "to_device_ms_per_step.train": (TRAIN_SPANS, 10.0 / 2),
     "forward_ms_per_step.train": (TRAIN_SPANS, 300.0 / 2),
     "backward_ms_per_step.train": (TRAIN_SPANS, 300.0 / 2),
